@@ -1,26 +1,37 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's coupled render+deform frame once on one CUDA
-card, through its hand-written kernels.
+"""Drive the PyTorch port's coupled render+deform frame and its training
+path once on one CUDA card, through its hand-written kernels.
 
     python3 chip_smoke.py
 
 Phases, each raising on failure:
   1. torch / CUDA versions, the card's name and power limit;
   2. build the CUDA kernels from fembrain_tpu_torch/csrc with nvcc;
-  3. hold each kernel against its plain PyTorch version on the card, on
-     the brain scene at 480x270 and 1920x1080 (K1 rest trace; K2 deformed
-     trace after a 40-step FEM settle), and time both at 1920x1080;
+  3. hold each kernel against its plain PyTorch version on the card, at
+     480x270 and 1920x1080 (K1 rest trace on brain; K2 Wendland and K4
+     biharmonic deformed traces after a 40-step FEM settle; K3 general
+     trace on the brain resection, and on a twisted blend at 480x270), and
+     time each at 1920x1080;
   4. with the launch counters at 0, run the main path at 1920x1080: load
      and pack brain.blob, extract the tet mesh (cellsize 0.14), build the
      grid FEM and the 256-center Wendland interpolant, settle 40 steps,
-     trace one rest frame (K1) and 10 coupled frames (K2);
-  5. check the counters, hits, finiteness and the FEM sag;
-  6. print the stage times.
+     trace one rest frame (K1) and 10 coupled frames (K2); check the
+     counters, hits, finiteness and the FEM sag, and print stage times;
+  5. with the launch counters at 0 again, the training path at 1920x1080:
+     (a) trace_fast on the brain resection (K3) and the gradient of the
+     summed hit depth with respect to the prim positions; (b) from the
+     settled brain, one differentiable coupled frame with the 112-center
+     biharmonic interpolant (K4) and the gradient with respect to Young's
+     modulus, with CG iterations, times and peak memory, each run twice
+     (first and warm call); (c) that
+     E-gradient against central finite differences at a small size
+     (cellsize 0.35, 64 centers, 24x18 rays, one step from rest).
 Then one JSON line with the kernels, the card line, and the result line.
 It needs a CUDA card and exits non-zero without one.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -36,8 +47,27 @@ K_REFRESH = 4       # the brain's refresh cycle in the reference bench
 CG_TOL = 1e-2       # forward-rendering CG tolerance of the coupled frame
 SETTLE_STEPS = 40
 N_FRAMES = 10
-K1_AGREE, K1_MAX = 0.999, 1e-4
-K2_AGREE, K2_MEDIAN, K2_MAX = 0.995, 5e-3, 5e-2
+MAX_DISP = 0.5      # static bracket inflation of the biharmonic trace
+# The E-gradient check at the size of the reference's (bench.py:683-718).
+FD_CELLSIZE, FD_CENTERS, FD_RAYS, FD_FORCE = 0.35, 64, (24, 18), -200.0
+FD_MAX_REL = 0.05
+# Kernel against plain version: (hit agreement, max |dt|, median |dt|).
+THRESHOLDS = {
+    "trace_additive_rest": (0.999, 1e-4, None),
+    "trace_additive_wendland": (0.995, 5e-2, 5e-3),
+    "trace_general": (0.999, 1e-4, None),
+    "trace_additive_biharmonic": (0.995, 1e-3, None),
+}
+KERNELS = (  # name, source, the TPU kernel it replaces
+    ("trace_additive_rest", "fembrain_tpu_torch/csrc/trace_additive.cu",
+     "fembrain_tpu/render/pallas_trace.py:349"),
+    ("trace_additive_wendland", "fembrain_tpu_torch/csrc/trace_additive.cu",
+     "fembrain_tpu/render/pallas_trace.py:497"),
+    ("trace_general", "fembrain_tpu_torch/csrc/trace_general.cu",
+     "fembrain_tpu/render/pallas_trace.py:267"),
+    ("trace_additive_biharmonic", "fembrain_tpu_torch/csrc/trace_additive.cu",
+     "fembrain_tpu/render/pallas_trace.py:692"),
+)
 
 
 def card_line() -> str:
@@ -77,13 +107,20 @@ def event_ms(fn, reps: int):
     return start.elapsed_time(stop) / reps
 
 
-def build_frame(root: Path, device, log):
-    """The main path's set-up: scene, tet mesh, grid FEM, interpolant,
-    external force and the settled FEM state."""
+def load_scene(root: Path, device):
+    from fembrain_tpu_torch.blob.reader import load_blob
+
+    sdef = load_blob(root / "data" / "models" / "blobtree" / "brain.blob")
+    sdef.flatten_instances()
+    return sdef.pack(device=device)
+
+
+def fem_setup(scene, cellsize, device, n_centers, kernel, force):
+    """Tet mesh, anchors, grid FEM, displacement interpolant and gravity
+    f_ext = force * mass for `scene`."""
     import numpy as np
     import torch
 
-    from fembrain_tpu_torch.blob.reader import load_blob
     from fembrain_tpu_torch.fem import grid_fem as gfm
     from fembrain_tpu_torch.mesh.polygonize import (
         extract_tet_mesh, grid_for_scene,
@@ -91,36 +128,55 @@ def build_frame(root: Path, device, log):
     from fembrain_tpu_torch.mesh.samples import bottom_nodes_per_component
     from fembrain_tpu_torch.render.deformed import build_disp_interp
 
-    t0 = time.perf_counter()
-    sdef = load_blob(root / "data" / "models" / "blobtree" / "brain.blob")
-    sdef.flatten_instances()
-    scene = sdef.pack(device=device)
-    grid = grid_for_scene(scene, cellsize=CELLSIZE)
+    grid = grid_for_scene(scene, cellsize=cellsize)
     tm = extract_tet_mesh(scene, grid, ncap=grid.n_vertices,
                           tetcap=grid.n_cells * 6)
     nodes = tm.nodes[: tm.n_nodes].cpu().numpy()
     tets = tm.tets[: tm.n_tets].cpu().numpy()
-    log(f"tet mesh: {tm.n_nodes} nodes, {tm.n_tets} tets "
-        f"(cellsize {CELLSIZE}, grid {grid.dims})")
     fixed = bottom_nodes_per_component(nodes, tets, frac=0.25)
     gf = gfm.grid_fem_from_tetmesh(grid, tm, fixed_nodes=fixed,
                                    device=device)
-    interp = build_disp_interp(nodes, n_centers=N_CENTERS,
-                               sigma_fill=SIGMA_FILL, device=device)
+    kw = {"sigma_fill": SIGMA_FILL} if kernel == "wendland" else {}
+    interp = build_disp_interp(nodes, n_centers=n_centers, fixed=fixed,
+                               kernel=kernel, device=device, **kw)
     n2g = gfm.node_to_grid_index(tm)
-    cgi = torch.as_tensor(
-        n2g[interp.center_nodes.cpu().numpy()].astype(np.int64),
-        device=device,
-    )
     f_ext = np.zeros((int(np.prod(grid.dims)), 3), np.float32)
-    f_ext[n2g, 1] = -500.0 * gf.mass.cpu().numpy().reshape(-1)[n2g]
-    f_ext = torch.as_tensor(f_ext.reshape(*grid.dims, 3), device=device)
+    f_ext[n2g, 1] = force * gf.mass.cpu().numpy().reshape(-1)[n2g]
+    return dict(
+        grid=grid, tm=tm, nodes=nodes, fixed=fixed, gf=gf, interp=interp,
+        n2g=n2g, cgi=center_grid_index(interp, n2g, device),
+        f_ext=torch.as_tensor(f_ext.reshape(*grid.dims, 3), device=device),
+    )
+
+
+def center_grid_index(interp, n2g, device):
+    import numpy as np
+    import torch
+
+    return torch.as_tensor(
+        n2g[interp.center_nodes.cpu().numpy()].astype(np.int64),
+        device=device)
+
+
+def build_frame(root: Path, device, log):
+    """The main path's set-up: scene, tet mesh, grid FEM, Wendland
+    interpolant, external force and the settled FEM state."""
+    import torch
+
+    from fembrain_tpu_torch.fem import grid_fem as gfm
+
+    t0 = time.perf_counter()
+    scene = load_scene(root, device)
+    frame = fem_setup(scene, CELLSIZE, device, N_CENTERS, "wendland", -500.0)
+    tm, gf = frame["tm"], frame["gf"]
+    log(f"tet mesh: {tm.n_nodes} nodes, {tm.n_tets} tets "
+        f"(cellsize {CELLSIZE}, grid {frame['grid'].dims})")
     setup_s = time.perf_counter() - t0
     state = gf.rest_state()
     iters = []
     t0 = time.perf_counter()
     for _ in range(SETTLE_STEPS):
-        state, it = gfm.timestep(gf, state, f_ext)
+        state, it = gfm.timestep(gf, state, frame["f_ext"])
         iters.append(it)
     torch.cuda.synchronize()
     settle_ms = (time.perf_counter() - t0) * 1e3
@@ -128,23 +184,46 @@ def build_frame(root: Path, device, log):
     log(f"set-up {setup_s:.3f} s; settle {SETTLE_STEPS} steps "
         f"{settle_ms:.1f} ms (CG iterations {iters[0]}..{iters[-1]}, "
         f"mean {sum(iters) / len(iters):.1f}); sag min q_y {sag:.6f}")
-    return dict(scene=scene, tm=tm, gf=gf, interp=interp, cgi=cgi,
-                f_ext=f_ext, state=state, sag=sag)
+    frame.update(scene=scene, state=state, sag=sag)
+    return frame
 
 
-def image_rays(width, height, device):
+def biharmonic_frame_spec(frame, state, device, log, tag):
+    """The 112-center biharmonic interpolant of a settled frame, its
+    weights, and the static bracket inflation that covers the state's
+    |u| bound (raised in steps of 0.25 where MAX_DISP does not)."""
+    from fembrain_tpu_torch.render.deformed import (
+        build_disp_interp, disp_weights_centers, max_disp_bound,
+    )
+
+    interp = build_disp_interp(frame["nodes"], fixed=frame["fixed"],
+                               device=device)
+    cgi = center_grid_index(interp, frame["n2g"], device)
+    w = disp_weights_centers(interp, state.q.reshape(-1, 3)[cgi])
+    bound = float(max_disp_bound(interp, w,
+                                 state.q.reshape(-1, 3)[frame["n2g"]]))
+    max_disp = MAX_DISP
+    while bound > max_disp:
+        max_disp += 0.25
+    log(f"biharmonic interpolant: {interp.centers.shape[0]} centers; "
+        f"max_disp_bound {bound:.6f}, max_disp {max_disp} {tag}")
+    return interp, cgi, w, max_disp, bound
+
+
+def image_rays(width, height, device, pose=(30.0, 20.0, 8.0)):
     from fembrain_tpu_torch.render.camera import Camera, generate_rays
 
-    ro, rd = generate_rays(Camera.orbit(30.0, 20.0, 8.0, device=device),
-                           width, height)
+    ro, rd = generate_rays(Camera.orbit(*pose, device=device), width,
+                           height)
     return ro.reshape(-1, 3).contiguous(), rd.reshape(-1, 3).contiguous()
 
 
-def compare(kernel, plain, inp, wendland: bool, log, label):
+def compare(kernel, plain, inp, name, log, label):
     """Kernel against its plain version on the same inputs; raises when
-    outside the thresholds. Returns (max |dt| on common hits, hits)."""
+    outside the kernel's thresholds. Returns max |dt| on common hits."""
     import torch
 
+    agree_min, max_allowed, median_allowed = THRESHOLDS[name]
     t_k, h_k = kernel(inp)
     t_p, h_p = plain(inp)
     torch.cuda.synchronize()
@@ -152,96 +231,95 @@ def compare(kernel, plain, inp, wendland: bool, log, label):
     if not bool(torch.isfinite(t_k).all()):
         raise AssertionError(f"{label}: kernel produced non-finite t")
     agree = float((hk == hp).float().mean())
-    both = hk & hp
-    diff = torch.abs(t_k - t_p)[both]
+    diff = torch.abs(t_k - t_p)[hk & hp]
     max_d = float(diff.max()) if diff.numel() else 0.0
     med_d = float(diff.median()) if diff.numel() else 0.0
     log(f"{label}: hits kernel {int(hk.sum())} plain {int(hp.sum())}, "
         f"agreement {agree:.6f}, |dt| median {med_d:.3e} max {max_d:.3e}")
-    if wendland:
-        ok = agree > K2_AGREE and med_d < K2_MEDIAN and max_d < K2_MAX
-    else:
-        ok = agree > K1_AGREE and max_d < K1_MAX
+    ok = agree > agree_min and max_d < max_allowed
+    if median_allowed is not None:
+        ok = ok and med_d < median_allowed
     if not ok or int(hk.sum()) == 0:
         raise AssertionError(f"{label}: kernel and plain version disagree")
-    return max_d, int(hk.sum())
+    return max_d
 
 
-def main() -> int:
+def kernel_phase(root, device, params, tag, log):
+    """Phase 3: every kernel against its plain version; (results, the
+    settled frame)."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    root = Path(__file__).resolve().parent
-    sys.path.insert(0, str(root))
-    import fembrain_tpu_torch  # noqa: F401  (sets full-f32 matmuls)
-    from fembrain_tpu_torch import native
     from fembrain_tpu_torch.render import tile_trace as tt
     from fembrain_tpu_torch.render.deformed import (
-        coupled_step_grid_fast, disp_weights_centers,
-        trace_deformed_rbf_fast, wendland_spec,
+        biharmonic_spec, disp_weights_centers, march_step_bounds,
+        wendland_spec,
     )
-    from fembrain_tpu_torch.render.sphere_trace import TraceParams
-    from fembrain_tpu_torch.fem import grid_fem as gfm
 
-    device = torch.device("cuda", 0)
-    card = card_line()
-    tag = f"[{card}]"
+    sys.path.insert(0, str(root / "tests"))
+    from test_torch_fixtures import blend_twist, brain_resection
+    import fembrain_tpu_torch.blob.scene as pscene
 
-    def log(msg):
-        print(msg, flush=True)
-
-    # 1. versions and card
-    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}, device "
-        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    log(f"card: {card}")
-
-    # 2. build
-    t0 = time.perf_counter()
-    lib_path = native.build()
-    native.load()
-    log(f"build: {lib_path.name} in {time.perf_counter() - t0:.2f} s")
-    report = lib_path.with_suffix(".log")
-    if report.exists():
-        for line in report.read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                log(f"  ptxas: {line.strip()}")
-
-    params = TraceParams()
     tile = tt.TILE
-
-    # 3. kernels against their plain versions
     frame = build_frame(root, device, log)
-    scene, interp = frame["scene"], frame["interp"]
+    scene, state = frame["scene"], frame["state"]
     w_settled = disp_weights_centers(
-        interp, frame["state"].q.reshape(-1, 3)[frame["cgi"]]
-    )
-    spec = wendland_spec(interp, w_settled, k_refresh=K_REFRESH)
+        frame["interp"], state.q.reshape(-1, 3)[frame["cgi"]])
+    spec_w = wendland_spec(frame["interp"], w_settled, k_refresh=K_REFRESH)
+    interp_b, _, w_b, max_disp, _ = biharmonic_frame_spec(
+        frame, state, device, log, tag)
+    spec_b = biharmonic_spec(interp_b, w_b, *march_step_bounds(interp_b, w_b),
+                             max_disp=max_disp)
+    resection = brain_resection(pscene).pack(device=device)
+    twist = blend_twist(pscene).pack(device=device)
+    cases = []
+    for size in (SMALL, (WIDTH, HEIGHT)):
+        cases += [
+            ("trace_additive_rest", size, scene, None, None),
+            ("trace_additive_wendland", size, scene, spec_w, None),
+            ("trace_additive_biharmonic", size, scene, spec_b, None),
+            ("trace_general", size, resection, None, None),
+        ]
+    cases.append(("trace_general", SMALL, twist, None, (25.0, 20.0, 2.5)))
+    plains = {
+        "trace_additive_rest": tt.trace_tiles_plain,
+        "trace_additive_wendland": tt.trace_tiles_wendland_plain,
+        "trace_additive_biharmonic": tt.trace_tiles_biharmonic_plain,
+        "trace_general": tt.trace_tiles_general_plain,
+    }
     results = {}
-    for width, height in (SMALL, (WIDTH, HEIGHT)):
-        ro, rd = image_rays(width, height, device)
-        ro_b, rd_b, _ = tt._image_rays_to_blocks(ro, rd, height, width, tile)
-        for name, disp, plain in (
-            ("trace_additive_rest", None, tt.trace_tiles_plain),
-            ("trace_additive_wendland", spec, tt.trace_tiles_wendland_plain),
-        ):
-            inp = tt.prepare_tiles(scene, ro_b, rd_b, params, tile, disp)
-            max_d, _ = compare(tt.trace_additive_cuda, plain, inp,
-                               disp is not None, log,
-                               f"{name} {width}x{height}")
-            if (width, height) == (WIDTH, HEIGHT):
-                ms = event_ms(lambda: tt.trace_additive_cuda(inp), 5)
-                plain_ms, _ = sync_ms(lambda: plain(inp))
-                log(f"{name} {width}x{height}: kernel {ms:.3f} ms, plain "
-                    f"{plain_ms:.3f} ms {tag}")
-                results[name] = dict(max_abs_err=max_d, ms=ms,
-                                     plain_ms=plain_ms)
-    del frame, spec, w_settled
-    torch.cuda.empty_cache()
+    for name, (width, height), sc, disp, pose in cases:
+        ro, rd = image_rays(width, height, device, pose or (30.0, 20.0, 8.0))
+        ro_b, rd_b, _ = tt.image_rays_to_blocks(ro, rd, height, width, tile)
+        if name == "trace_general":
+            inp = tt.prepare_general(sc, ro_b, rd_b, params, tile)
+            kernel = tt.trace_general_cuda
+        else:
+            inp = tt.prepare_tiles(sc, ro_b, rd_b, params, tile, disp)
+            kernel = tt.trace_additive_cuda
+        label = f"{name} {width}x{height}" + (" twist" if pose else "")
+        max_d = compare(kernel, plains[name], inp, name, log, label)
+        if (width, height) == (WIDTH, HEIGHT):
+            ms = event_ms(lambda: kernel(inp), 5)
+            plain_ms, _ = sync_ms(lambda: plains[name](inp))
+            log(f"{name} {width}x{height}: kernel {ms:.3f} ms, plain "
+                f"{plain_ms:.3f} ms {tag}")
+            results[name] = dict(max_abs_err=max_d, ms=ms, plain_ms=plain_ms)
+        del inp
+        torch.cuda.empty_cache()
+    return results
 
-    # 4. the main path, counted
+
+def main_path_phase(root, device, params, tag, log):
+    """Phase 4: the main path (rest and coupled frames), counted; returns
+    (launches, frame)."""
+    import torch
+
+    from fembrain_tpu_torch.fem import grid_fem as gfm
+    from fembrain_tpu_torch.render import tile_trace as tt
+    from fembrain_tpu_torch.render.deformed import (
+        coupled_step_grid_fast, disp_weights_centers, trace_deformed_rbf_fast,
+    )
+
     tt.reset_launch_counts()
     t_main = time.perf_counter()
     frame = build_frame(root, device, log)
@@ -283,13 +361,13 @@ def main() -> int:
     )
     trace_ms, _ = sync_ms(
         lambda: trace_deformed_rbf_fast(scene, interp, w1, ro, rd, params,
-                                        image_hw=hw, k_refresh=K_REFRESH),
+                                        image_hw=hw, need_grads=False,
+                                        k_refresh=K_REFRESH),
         reps=N_FRAMES,
     )
     main_s = time.perf_counter() - t_main
     launches = dict(tt.LAUNCHES)
 
-    # 5. checks
     log(f"launches in the main path: {launches}")
     for name in ("trace_additive_rest", "trace_additive_wendland"):
         if launches[name] <= 0:
@@ -308,8 +386,6 @@ def main() -> int:
         raise AssertionError(f"FEM state did not sag (min q_y {sag})")
     log(f"hits at {WIDTH}x{HEIGHT}: rest {n_rest}, coupled {n_def}; "
         f"coupled-frame CG iterations {cg_iters}; sag min q_y {sag:.6f}")
-
-    # 6. stage times
     rays = WIDTH * HEIGHT
     log(f"rest trace {WIDTH}x{HEIGHT}: {rest_ms:.3f} ms/frame, "
         f"{rays / rest_ms * 1e3:.1f} rays/s {tag}")
@@ -318,19 +394,185 @@ def main() -> int:
     log(f"coupled split: fem {fem_ms:.3f} ms, rbf {rbf_ms:.3f} ms, "
         f"trace {trace_ms:.3f} ms {tag}")
     log(f"main path total {main_s:.1f} s")
+    return launches, frame
 
-    kernels = []
-    for name, replaces in (
-        ("trace_additive_rest",
-         "fembrain_tpu/render/pallas_trace.py:349"),
-        ("trace_additive_wendland",
-         "fembrain_tpu/render/pallas_trace.py:497"),
-    ):
-        kernels.append(dict(
-            name=name, route="cuda",
-            source="fembrain_tpu_torch/csrc/trace_additive.cu",
-            replaces=replaces, launches=launches[name], **results[name],
-        ))
+
+def _check_grad(label, g):
+    import torch
+
+    if not bool(torch.isfinite(g).all()) or float(torch.abs(g).max()) == 0.0:
+        raise AssertionError(f"{label}: gradient not finite and non-zero")
+
+
+def training_phase(root, device, params, frame, tag, log):
+    """Phase 5: the training path at 1920x1080, counted; returns the
+    launches."""
+    import torch
+
+    from fembrain_tpu_torch.render import tile_trace as tt
+    from fembrain_tpu_torch.render.deformed import (
+        coupled_step_grid_fast, disp_weights_centers, max_disp_bound,
+    )
+
+    sys.path.insert(0, str(root / "tests"))
+    from test_torch_fixtures import brain_resection
+    import fembrain_tpu_torch.blob.scene as pscene
+
+    resection = brain_resection(pscene).pack(device=device)
+    scene, gf, st0 = frame["scene"], frame["gf"], frame["state"]
+    interp_b, cgi_b, _, max_disp, _ = biharmonic_frame_spec(
+        frame, st0, device, log, tag)
+    ro, rd = image_rays(WIDTH, HEIGHT, device)
+    # Block-coherent ray order for trace_fast (the loss is order-free).
+    ro_b, rd_b, _ = tt.image_rays_to_blocks(ro, rd, HEIGHT, WIDTH)
+    hw = (HEIGHT, WIDTH)
+    torch.cuda.empty_cache()
+
+    tt.reset_launch_counts()
+    # Each step runs twice: the first call in a process also pays CUDA's
+    # lazy loading of the autograd kernels it meets; the second is warm.
+    # (a) trace_fast on the brain resection, d loss / d prim_pos.
+    for run in ("first", "warm"):
+        pos = resection.prim_pos.clone().requires_grad_(True)
+        sc = dataclasses.replace(resection, prim_pos=pos)
+        fwd_ms, (t, hit) = sync_ms(
+            lambda: tt.trace_fast(sc, ro_b, rd_b, params))
+        loss = torch.sum(torch.where(hit, t, 0.0))
+        bwd_ms, _ = sync_ms(loss.backward)
+        _check_grad("trace_fast prim_pos", pos.grad)
+        log(f"(a) trace_fast brain resection {WIDTH}x{HEIGHT}, {run} call: "
+            f"{int(hit.sum())} hits, loss {float(loss.detach()):.4f}, "
+            f"|d/dpos| max {float(pos.grad.abs().max()):.6f}; forward "
+            f"{fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms {tag}")
+        del t, hit, loss, pos, sc
+    torch.cuda.empty_cache()
+
+    # (b) one differentiable coupled frame from the settled brain, dE.
+    for run in ("first", "warm"):
+        e_scale = torch.tensor(1.0, device=device, requires_grad=True)
+        stats = {}
+        torch.cuda.reset_peak_memory_stats()
+        fwd_ms, (t, hit, st1, _) = sync_ms(lambda: coupled_step_grid_fast(
+            scene, gf, interp_b, cgi_b, st0, frame["f_ext"], ro, rd,
+            E_scale=e_scale, params=params, image_hw=hw, differentiable=True,
+            max_disp=max_disp, solve_stats=stats))
+        loss = torch.sum(torch.where(hit, t, 0.0))
+        bwd_ms, _ = sync_ms(loss.backward)
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        _check_grad("coupled frame E_scale", e_scale.grad)
+        with torch.no_grad():
+            w1 = disp_weights_centers(interp_b, st1.q.reshape(-1, 3)[cgi_b])
+            bound = float(max_disp_bound(interp_b, w1,
+                                         st1.q.reshape(-1, 3)[frame["n2g"]]))
+        if bound > max_disp:
+            raise AssertionError(f"max_disp_bound {bound} > max_disp "
+                                 f"{max_disp}")
+        log(f"(b) differentiable coupled frame {WIDTH}x{HEIGHT}, {run} "
+            f"call: {int(hit.sum())} hits, loss {float(loss.detach()):.4f}, "
+            f"dloss/dE {float(e_scale.grad):.6f}; CG iterations forward "
+            f"{stats['forward_iters']}, adjoint {stats['adjoint_iters']}; "
+            f"max_disp_bound {bound:.6f} <= max_disp {max_disp}; forward "
+            f"{fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms, peak memory "
+            f"{peak_gb:.3f} GiB {tag}")
+        del t, hit, loss, st1
+    launches = dict(tt.LAUNCHES)
+    log(f"launches in the training path: {launches}")
+    for name in ("trace_general", "trace_additive_biharmonic"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the training "
+                                 "path")
+    torch.cuda.empty_cache()
+
+    # (c) the E-gradient against central differences at a small size.
+    small = fem_setup(scene, FD_CELLSIZE, device, FD_CENTERS, "biharmonic",
+                      FD_FORCE)
+    ro_s, rd_s = image_rays(*FD_RAYS, device)
+
+    def fd_frame(e):
+        return coupled_step_grid_fast(
+            scene, small["gf"], small["interp"], small["cgi"],
+            small["gf"].rest_state(), small["f_ext"], ro_s, rd_s,
+            E_scale=e, params=params, differentiable=True)
+
+    e_scale = torch.tensor(1.0, device=device, requires_grad=True)
+    t, hit0, _, _ = fd_frame(e_scale)
+    torch.sum(torch.where(hit0, t, 0.0)).backward()
+    g = float(e_scale.grad)
+
+    def fd_loss(e):
+        with torch.no_grad():
+            t, _, _, _ = fd_frame(torch.tensor(e, device=device))
+        return float(torch.sum(torch.where(hit0, t, 0.0)))
+
+    l0 = fd_loss(1.0)
+    sigma = abs(fd_loss(1.0 + 1e-6) - l0)
+    eps = min(max(100.0 * sigma / max(abs(g), 1e-9), 0.05), 0.3)
+    fd = (fd_loss(1.0 + eps) - fd_loss(1.0 - eps)) / (2.0 * eps)
+    rel = abs(g - fd) / max(abs(fd), 1e-12)
+    log(f"(c) E-gradient f32 on the card, brain cellsize {FD_CELLSIZE}, "
+        f"{FD_CENTERS} centers, {FD_RAYS[0]}x{FD_RAYS[1]} rays, "
+        f"{int(hit0.sum())} hits: autograd {g:.6f}, FD {fd:.6f} (eps {eps:.3g}"
+        f", noise floor {sigma:.3g} on loss {l0:.4f}), relative error "
+        f"{rel:.6f} {tag}")
+    if not rel < FD_MAX_REL:
+        raise AssertionError(f"E-gradient relative error {rel} >= "
+                             f"{FD_MAX_REL}")
+    return launches
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root))
+    import fembrain_tpu_torch  # noqa: F401  (sets full-f32 matmuls)
+    from fembrain_tpu_torch import native
+    from fembrain_tpu_torch.render.sphere_trace import TraceParams
+
+    device = torch.device("cuda", 0)
+    card = card_line()
+    tag = f"[{card}]"
+
+    def log(msg):
+        print(msg, flush=True)
+
+    # 1. versions and card
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, device "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    log(f"card: {card}")
+
+    # 2. build
+    t0 = time.perf_counter()
+    lib_path = native.build()
+    native.load()
+    log(f"build: {lib_path.name} in {time.perf_counter() - t0:.2f} s")
+    report = lib_path.with_suffix(".log")
+    if report.exists():
+        for line in report.read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"  ptxas: {line.strip()}")
+
+    params = TraceParams()
+    # 3. kernels against their plain versions
+    results = kernel_phase(root, device, params, tag, log)
+    torch.cuda.empty_cache()
+    # 4. the main path, counted
+    launches, frame = main_path_phase(root, device, params, tag, log)
+    torch.cuda.empty_cache()
+    # 5. the training path, counted
+    launches.update({k: v for k, v in training_phase(
+        root, device, params, frame, tag, log).items()
+        if k in ("trace_general", "trace_additive_biharmonic")})
+
+    kernels = [
+        dict(name=name, route="cuda", source=source, replaces=replaces,
+             launches=launches[name], **results[name])
+        for name, source, replaces in KERNELS
+    ]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -89,8 +89,9 @@ def grid_fem(fields: dict, device="cpu") -> GridFem:
 
 
 def disp_interp(fields: dict, device="cpu") -> DispInterp:
-    if fields["kind"] != "wendland":
-        raise ValueError("only the Wendland interpolant is ported")
+    """DispInterp of either kind (biharmonic or Wendland)."""
+    if fields["kind"] not in ("biharmonic", "wendland"):
+        raise ValueError(f"unknown interpolant kind {fields['kind']!r}")
     return _build(DispInterp, fields, device)
 
 

@@ -1,0 +1,179 @@
+// Device helpers shared by the tile-trace kernels (trace_additive.cu,
+// trace_general.cu): the Wyvill field of one packed prim row and the
+// sphere-trace step table.
+//
+// Counterpart of fembrain_tpu/ops/field.py `rows_prim_fields` (the typed
+// skeleton distances) and fembrain_tpu/render/sphere_trace.py
+// `support_radius_bound`; the plain PyTorch versions are in
+// fembrain_tpu_torch/ops/field.py and render/sphere_trace.py.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace fb {
+
+constexpr int kPrimRow = 24;  // m[3][4], pos[3], dir[3], res[4], type, aux
+constexpr float kBig = 10.0f;  // squared distance of prims with no branch
+
+enum PrimType {
+  kPoint = 0, kLine = 1, kCylinder = 2, kDisc = 3, kRing = 4, kCube = 5,
+  kTriangle = 6, kQuadricPoint = 7,
+};
+
+__device__ __forceinline__ float wyvill(float dd) {
+  const float t = fmaxf(0.0f, 1.0f - dd);
+  return t * t * t;
+}
+
+__device__ __forceinline__ float safe_div(float num, float den) {
+  const float eps = 1e-12f;
+  return num / (fabsf(den) < eps ? (den < 0.0f ? -eps : eps) : den);
+}
+
+__device__ __forceinline__ float dot3(float ax, float ay, float az,
+                                      float bx, float by, float bz) {
+  return ax * bx + ay * by + az * bz;
+}
+
+__device__ inline float dist2_triangle(float vx, float vy, float vz,
+                                       const float* p) {
+  const float ax = p[12], ay = p[13], az = p[14];
+  const float bx = p[15], by = p[16], bz = p[17];
+  const float cx = p[18], cy = p[19], cz = p[20];
+  const float abx = bx - ax, aby = by - ay, abz = bz - az;
+  const float acx = cx - ax, acy = cy - ay, acz = cz - az;
+  const float d1 = dot3(abx, aby, abz, vx - ax, vy - ay, vz - az);
+  const float d2 = dot3(acx, acy, acz, vx - ax, vy - ay, vz - az);
+  const float d3 = dot3(abx, aby, abz, vx - bx, vy - by, vz - bz);
+  const float d4 = dot3(acx, acy, acz, vx - bx, vy - by, vz - bz);
+  const float d5 = dot3(abx, aby, abz, vx - cx, vy - cy, vz - cz);
+  const float d6 = dot3(acx, acy, acz, vx - cx, vy - cy, vz - cz);
+  const float va = d3 * d6 - d5 * d4;
+  const float vb = d5 * d2 - d1 * d6;
+  const float vc = d1 * d4 - d3 * d2;
+  const float denom = va + vb + vc;
+  const float v = safe_div(vb, denom);
+  const float w = safe_div(vc, denom);
+  float qx = ax + v * abx + w * acx;
+  float qy = ay + v * aby + w * acy;
+  float qz = az + v * abz + w * acz;
+  const float t_ab = fminf(fmaxf(safe_div(d1, d1 - d3), 0.0f), 1.0f);
+  const float t_ac = fminf(fmaxf(safe_div(d2, d2 - d6), 0.0f), 1.0f);
+  const float t_bc =
+      fminf(fmaxf(safe_div(d4 - d3, (d4 - d3) + (d5 - d6)), 0.0f), 1.0f);
+  const bool in_ab = (vc <= 0.0f) && (d1 >= 0.0f) && (d3 <= 0.0f);
+  const bool in_ac = (vb <= 0.0f) && (d2 >= 0.0f) && (d6 <= 0.0f);
+  const bool in_bc = (va <= 0.0f) && ((d4 - d3) >= 0.0f) && ((d5 - d6) >= 0.0f);
+  const bool at_a = (d1 <= 0.0f) && (d2 <= 0.0f);
+  const bool at_b = (d3 >= 0.0f) && (d4 <= d3);
+  const bool at_c = (d6 >= 0.0f) && (d5 <= d6);
+  // Later cases override earlier ones, in the reference's order.
+  if (in_bc) {
+    qx = bx + t_bc * (cx - bx); qy = by + t_bc * (cy - by); qz = bz + t_bc * (cz - bz);
+  }
+  if (in_ac) { qx = ax + t_ac * acx; qy = ay + t_ac * acy; qz = az + t_ac * acz; }
+  if (in_ab) { qx = ax + t_ab * abx; qy = ay + t_ab * aby; qz = az + t_ab * abz; }
+  if (at_c) { qx = cx; qy = cy; qz = cz; }
+  if (at_b) { qx = bx; qy = by; qz = bz; }
+  if (at_a) { qx = ax; qy = ay; qz = az; }
+  const float ex = vx - qx, ey = vy - qy, ez = vz - qz;
+  return dot3(ex, ey, ez, ex, ey, ez);
+}
+
+// Wyvill field of one packed prim row at a point (world coordinates for
+// the additive kernel, warped coordinates for the general one). Rows carry
+// the type the evaluator should use: in the additive kernel, points that
+// share a block with lines or cylinders arrive as degenerate lines
+// (dir = pos) or cylinders (dir = 0, r = h = 0).
+__device__ inline float prim_field(const float* p, float x, float y,
+                                   float z) {
+  const float vx = p[0] * x + p[1] * y + p[2] * z + p[3];
+  const float vy = p[4] * x + p[5] * y + p[6] * z + p[7];
+  const float vz = p[8] * x + p[9] * y + p[10] * z + p[11];
+  const float px = p[12], py = p[13], pz = p[14];
+  const float qx = p[15], qy = p[16], qz = p[17];
+  const int type = static_cast<int>(p[22]);
+  float d2 = kBig;
+  switch (type) {
+    case kPoint: {
+      const float ex = px - vx, ey = py - vy, ez = pz - vz;
+      d2 = dot3(ex, ey, ez, ex, ey, ez);
+      break;
+    }
+    case kLine: {
+      const float lx = qx - px, ly = qy - py, lz = qz - pz;
+      const float dd = dot3(lx, ly, lz, lx, ly, lz);
+      const float t = safe_div(dot3(vx - px, vy - py, vz - pz, lx, ly, lz), dd);
+      const float ex = vx - (px + t * lx), ey = vy - (py + t * ly),
+                  ez = vz - (pz + t * lz);
+      d2 = dot3(ex, ey, ez, ex, ey, ez);
+      break;
+    }
+    case kCylinder: {
+      const float sx = vx - px, sy = vy - py, sz = vz - pz;
+      float h = dot3(sx, sy, sz, qx, qy, qz);
+      const float pp = dot3(sx, sy, sz, sx, sy, sz);
+      const float r = fmaxf(0.0f, sqrtf(fmaxf(pp - h * h, 1e-20f)) - p[18]);
+      h = h > 0.0f ? fmaxf(0.0f, h - p[19]) : h;
+      d2 = r * r + h * h;
+      break;
+    }
+    case kDisc:
+    case kRing: {
+      const float rad = p[18];
+      const float sx = vx - px, sy = vy - py, sz = vz - pz;
+      const float dn = dot3(sx, sy, sz, qx, qy, qz);
+      const float ix = sx - dn * qx, iy = sy - dn * qy, iz = sz - dn * qz;
+      const float len2 = dot3(ix, iy, iz, ix, iy, iz);
+      const float dd = dot3(sx, sy, sz, sx, sy, sz);
+      const float inv_len = 1.0f / sqrtf(len2 < 1e-24f ? 1.0f : len2);
+      const float ex = rad * ix * inv_len - sx, ey = rad * iy * inv_len - sy,
+                  ez = rad * iz * inv_len - sz;
+      const float edge2 = dot3(ex, ey, ez, ex, ey, ez);
+      if (type == kDisc) {
+        d2 = len2 <= rad * rad ? fabsf(dd - len2) : edge2;
+      } else {
+        d2 = len2 < 1e-24f ? rad * rad + dd : edge2;
+      }
+      break;
+    }
+    case kCube: {
+      const float side = p[18];
+      const float ex = fmaxf(fabsf(vx - px) - side, 0.0f);
+      const float ey = fmaxf(fabsf(vy - py) - side, 0.0f);
+      const float ez = fmaxf(fabsf(vz - pz) - side, 0.0f);
+      d2 = 0.0f + ex * ex + ey * ey + ez * ez;
+      break;
+    }
+    case kTriangle:
+      d2 = dist2_triangle(vx, vy, vz, p);
+      break;
+    case kQuadricPoint: {
+      // Polynomial inside the support radius dir.z, Wyvill outside.
+      const float ex = vx - px, ey = vy - py, ez = vz - pz;
+      const float dd = dot3(ex, ey, ez, ex, ey, ez);
+      return qz > dd ? dd * dd * p[18] + dd * p[19] + p[20] : wyvill(dd);
+    }
+    default:
+      break;
+  }
+  return wyvill(d2);
+}
+
+// Piecewise-constant lower bound on r(f) = sqrt(1 - f^(1/3)), shared with
+// render/sphere_trace.py support_radius_bound.
+__device__ __forceinline__ float support_radius_bound(float fv) {
+  float r = 0.4542f;
+  if (fv <= 0.30f) r = 0.5749f;
+  if (fv <= 0.20f) r = 0.6444f;
+  if (fv <= 0.15f) r = 0.6846f;
+  if (fv <= 0.10f) r = 0.7320f;
+  if (fv <= 0.05f) r = 0.7947f;
+  if (fv <= 0.02f) r = 0.8536f;
+  if (fv <= 0.005f) r = 0.9105f;
+  if (fv <= 0.001f) r = 0.9487f;
+  if (fv <= 0.0001f) r = 0.9765f;
+  return r;
+}
+
+}  // namespace fb

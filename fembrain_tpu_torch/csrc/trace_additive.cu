@@ -1,46 +1,57 @@
 // Additive-scene tile sphere tracer for Hopper (sm_90a), CUDA C++.
 //
 // Replaces the Pallas TPU kernel fembrain_tpu/render/pallas_trace.py
-// `_trace_kernel_additive` (with `_march_tile` and the in-kernel prim
-// evaluator fembrain_tpu/ops/field.py `rows_prim_fields`) in two of its
-// modes, one template:
-//   K1  kWendland = false: rest trace of the sum of Wyvill prim fields;
-//   K2  kWendland = true : trace of the Wendland-RBF-deformed field, every
-//       eval pulling the march point back to rest space.
-// The plain PyTorch version of both is fembrain_tpu_torch/render/
+// `_trace_kernel_additive` (with `_march_tile`, `_pull_back_rows` and the
+// in-kernel prim evaluator fembrain_tpu/ops/field.py `rows_prim_fields`)
+// in its three modes, one template:
+//   K1  kRest       : rest trace of the sum of Wyvill prim fields;
+//   K2  kWendland   : trace of the Wendland-RBF-deformed field, every eval
+//       pulling the march point back to rest space through a linear
+//       rest-point model refreshed every k_refresh evals;
+//   K4  kBiharmonic : trace of the biharmonic-RBF-deformed field, every
+//       eval pulling back from scratch with fp_iters fixed-point iterations
+//       x <- y - (sum_j w_j |x - c_j| + a + B x) over all M centers.
+// The plain PyTorch version of all three is fembrain_tpu_torch/render/
 // tile_trace.py `_march_plain`; the host-side layout is `prepare_tiles`.
 //
 // What bounds it on an H100: per ray it reads 36 bytes and writes 8, so
 // device memory is idle; the work is scalar fp32 arithmetic in a
-// data-dependent loop, about 30 flops per live prim (8 per block) and, in
-// K2, about 20 per live Wendland center (32 per block) at every refresh.
-// The limits are FP32 issue rate and the lanes a tile keeps busy after
-// they finish: a tile marches until its last ray is done. Design:
+// data-dependent loop, about 30 flops per live prim (8 per block), in K2
+// about 20 per live Wendland center (32 per block) at every refresh, and in
+// K4 about 12 per center and iteration at every eval (brain: M = 112, two
+// iterations, so the pull-back costs as much as the field). The limits are
+// FP32 issue rate and the lanes a tile keeps busy after they finish: a
+// tile marches until its last ray is done. Design:
 //   * one ray per thread, one tile (a 16x16 pixel block at tile = 256)
 //     per CTA, so neighbouring rays share a loop and a cull decision;
-//   * prim rows, block boxes and, in K2, centers, weights and center boxes
-//     live in shared memory for the whole march (brain: 16 KB + 7 KB);
+//   * prim rows, block boxes and, in K2 and K4, centers, weights (and K2's
+//     center boxes) live in shared memory for the whole march (brain:
+//     16 KB + 7 KB in K2, + 2.7 KB in K4);
 //   * the hull of the live lanes' points is reduced per eval with warp
 //     shuffles and a shared-memory pass, so every block cull is a branch
 //     that is uniform across the CTA; the cull is exact (compact support);
+//   * K4 computes |x - c| directly: the TPU kernel's recentred quadratic
+//     expansion exists for its matrix unit and buys nothing here;
 //   * lanes whose value is discarded skip the prim and center loops;
 //   * the loop test is a CTA-wide `__syncthreads_or`, once per iteration of
-//     two sub-steps (K1) or one refresh plus k_refresh - 1 model evals (K2).
+//     two sub-steps (K1, K4) or one refresh plus k_refresh - 1 model evals
+//     (K2).
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
+#include "prim_field.cuh"
+
 namespace {
 
-constexpr int kPrimRow = 24;  // m[3][4], pos[3], dir[3], res[4], type, pad
+using fb::kPrimRow;
+using fb::prim_field;
+using fb::support_radius_bound;
+
 constexpr int kPrimBlock = 8;
-constexpr float kBig = 10.0f;      // squared distance of prims with no branch
 constexpr float kHullEps = 1e-4f;  // slack of the hull/box overlap test
 
-enum PrimType {
-  kPoint = 0, kLine = 1, kCylinder = 2, kDisc = 3, kRing = 4, kCube = 5,
-  kTriangle = 6, kQuadricPoint = 7,
-};
+enum Mode { kRest = 0, kWendland = 1, kBiharmonic = 2 };
 
 struct Args {
   const float* rays;       // [9, n] ro xyz, rd xyz, t_enter, t_exit, alive0
@@ -53,14 +64,19 @@ struct Args {
   int n_rays, n_prims, n_blocks, dyn_cull;
   float iso, r_iso, base_step;
   int max_steps, bisect_steps;
+  // Deformed modes: centers and kernel weights ([n_centers, 3] each), the
+  // affine tail [3, 4] (column 0 constant, 1:4 linear).
+  const float* centers;
+  const float* weights;
+  const float* waff;
+  int n_centers;
   // Wendland mode only.
-  const float* centers;    // [n_cb * cen_block, 3]
-  const float* weights;    // [n_cb * cen_block, 3]
-  const float* waff;       // [3, 4]
   const float* cboxes;     // [n_cb, 6]
   const int* clive;        // [tiles, n_cb]
   int n_cb, cen_block, k_refresh;
   float inv_sigma;
+  // Biharmonic mode only.
+  int fp_iters;
 };
 
 // Shared-memory layout in 4-byte words, shared by host and device.
@@ -69,7 +85,7 @@ struct Layout {
   int total;
 };
 
-__host__ __device__ inline Layout make_layout(const Args& a, bool wendland) {
+__host__ __device__ inline Layout make_layout(const Args& a, int mode) {
   Layout L{};
   int o = 0;
   L.prims = o;  o += a.n_prims * kPrimRow;
@@ -77,12 +93,13 @@ __host__ __device__ inline Layout make_layout(const Args& a, bool wendland) {
   L.red = o;    o += 32 * 6;
   L.hull = o;   o += 8;
   L.live = o;   o += a.n_blocks;
-  if (wendland) {
-    const int mp = a.n_cb * a.cen_block;
-    L.centers = o;  o += mp * 3;
-    L.weights = o;  o += mp * 3;
-    L.cboxes = o;   o += a.n_cb * 6;
+  if (mode != kRest) {
+    L.centers = o;  o += a.n_centers * 3;
+    L.weights = o;  o += a.n_centers * 3;
     L.waff = o;     o += 12;
+  }
+  if (mode == kWendland) {
+    L.cboxes = o;   o += a.n_cb * 6;
     L.clive = o;    o += a.n_cb;
   }
   L.total = o;
@@ -111,158 +128,6 @@ struct Ray {
 struct Carry {
   float xr, yr, zr, vx, vy, vz, tr;
 };
-
-__device__ __forceinline__ float wyvill(float dd) {
-  const float t = fmaxf(0.0f, 1.0f - dd);
-  return t * t * t;
-}
-
-__device__ __forceinline__ float safe_div(float num, float den) {
-  const float eps = 1e-12f;
-  return num / (fabsf(den) < eps ? (den < 0.0f ? -eps : eps) : den);
-}
-
-__device__ __forceinline__ float dot3(float ax, float ay, float az,
-                                      float bx, float by, float bz) {
-  return ax * bx + ay * by + az * bz;
-}
-
-__device__ float dist2_triangle(float vx, float vy, float vz, const float* p) {
-  const float ax = p[12], ay = p[13], az = p[14];
-  const float bx = p[15], by = p[16], bz = p[17];
-  const float cx = p[18], cy = p[19], cz = p[20];
-  const float abx = bx - ax, aby = by - ay, abz = bz - az;
-  const float acx = cx - ax, acy = cy - ay, acz = cz - az;
-  const float d1 = dot3(abx, aby, abz, vx - ax, vy - ay, vz - az);
-  const float d2 = dot3(acx, acy, acz, vx - ax, vy - ay, vz - az);
-  const float d3 = dot3(abx, aby, abz, vx - bx, vy - by, vz - bz);
-  const float d4 = dot3(acx, acy, acz, vx - bx, vy - by, vz - bz);
-  const float d5 = dot3(abx, aby, abz, vx - cx, vy - cy, vz - cz);
-  const float d6 = dot3(acx, acy, acz, vx - cx, vy - cy, vz - cz);
-  const float va = d3 * d6 - d5 * d4;
-  const float vb = d5 * d2 - d1 * d6;
-  const float vc = d1 * d4 - d3 * d2;
-  const float denom = va + vb + vc;
-  const float v = safe_div(vb, denom);
-  const float w = safe_div(vc, denom);
-  float qx = ax + v * abx + w * acx;
-  float qy = ay + v * aby + w * acy;
-  float qz = az + v * abz + w * acz;
-  const float t_ab = fminf(fmaxf(safe_div(d1, d1 - d3), 0.0f), 1.0f);
-  const float t_ac = fminf(fmaxf(safe_div(d2, d2 - d6), 0.0f), 1.0f);
-  const float t_bc =
-      fminf(fmaxf(safe_div(d4 - d3, (d4 - d3) + (d5 - d6)), 0.0f), 1.0f);
-  const bool in_ab = (vc <= 0.0f) && (d1 >= 0.0f) && (d3 <= 0.0f);
-  const bool in_ac = (vb <= 0.0f) && (d2 >= 0.0f) && (d6 <= 0.0f);
-  const bool in_bc = (va <= 0.0f) && ((d4 - d3) >= 0.0f) && ((d5 - d6) >= 0.0f);
-  const bool at_a = (d1 <= 0.0f) && (d2 <= 0.0f);
-  const bool at_b = (d3 >= 0.0f) && (d4 <= d3);
-  const bool at_c = (d6 >= 0.0f) && (d5 <= d6);
-  // Later cases override earlier ones, in the reference's order.
-  if (in_bc) {
-    qx = bx + t_bc * (cx - bx); qy = by + t_bc * (cy - by); qz = bz + t_bc * (cz - bz);
-  }
-  if (in_ac) { qx = ax + t_ac * acx; qy = ay + t_ac * acy; qz = az + t_ac * acz; }
-  if (in_ab) { qx = ax + t_ab * abx; qy = ay + t_ab * aby; qz = az + t_ab * abz; }
-  if (at_c) { qx = cx; qy = cy; qz = cz; }
-  if (at_b) { qx = bx; qy = by; qz = bz; }
-  if (at_a) { qx = ax; qy = ay; qz = az; }
-  const float ex = vx - qx, ey = vy - qy, ez = vz - qz;
-  return dot3(ex, ey, ez, ex, ey, ez);
-}
-
-// Wyvill field of one packed prim row at a world point. The row's type is
-// its effective type: points that share a block with lines or cylinders
-// arrive as degenerate lines (dir = pos) or cylinders (dir = 0, r = h = 0).
-__device__ float prim_field(const float* p, float x, float y, float z) {
-  const float vx = p[0] * x + p[1] * y + p[2] * z + p[3];
-  const float vy = p[4] * x + p[5] * y + p[6] * z + p[7];
-  const float vz = p[8] * x + p[9] * y + p[10] * z + p[11];
-  const float px = p[12], py = p[13], pz = p[14];
-  const float qx = p[15], qy = p[16], qz = p[17];
-  const int type = static_cast<int>(p[22]);
-  float d2 = kBig;
-  switch (type) {
-    case kPoint: {
-      const float ex = px - vx, ey = py - vy, ez = pz - vz;
-      d2 = dot3(ex, ey, ez, ex, ey, ez);
-      break;
-    }
-    case kLine: {
-      const float lx = qx - px, ly = qy - py, lz = qz - pz;
-      const float dd = dot3(lx, ly, lz, lx, ly, lz);
-      const float t = safe_div(dot3(vx - px, vy - py, vz - pz, lx, ly, lz), dd);
-      const float ex = vx - (px + t * lx), ey = vy - (py + t * ly),
-                  ez = vz - (pz + t * lz);
-      d2 = dot3(ex, ey, ez, ex, ey, ez);
-      break;
-    }
-    case kCylinder: {
-      const float sx = vx - px, sy = vy - py, sz = vz - pz;
-      float h = dot3(sx, sy, sz, qx, qy, qz);
-      const float pp = dot3(sx, sy, sz, sx, sy, sz);
-      const float r = fmaxf(0.0f, sqrtf(fmaxf(pp - h * h, 1e-20f)) - p[18]);
-      h = h > 0.0f ? fmaxf(0.0f, h - p[19]) : h;
-      d2 = r * r + h * h;
-      break;
-    }
-    case kDisc:
-    case kRing: {
-      const float rad = p[18];
-      const float sx = vx - px, sy = vy - py, sz = vz - pz;
-      const float dn = dot3(sx, sy, sz, qx, qy, qz);
-      const float ix = sx - dn * qx, iy = sy - dn * qy, iz = sz - dn * qz;
-      const float len2 = dot3(ix, iy, iz, ix, iy, iz);
-      const float dd = dot3(sx, sy, sz, sx, sy, sz);
-      const float inv_len = 1.0f / sqrtf(len2 < 1e-24f ? 1.0f : len2);
-      const float ex = rad * ix * inv_len - sx, ey = rad * iy * inv_len - sy,
-                  ez = rad * iz * inv_len - sz;
-      const float edge2 = dot3(ex, ey, ez, ex, ey, ez);
-      if (type == kDisc) {
-        d2 = len2 <= rad * rad ? fabsf(dd - len2) : edge2;
-      } else {
-        d2 = len2 < 1e-24f ? rad * rad + dd : edge2;
-      }
-      break;
-    }
-    case kCube: {
-      const float side = p[18];
-      const float ex = fmaxf(fabsf(vx - px) - side, 0.0f);
-      const float ey = fmaxf(fabsf(vy - py) - side, 0.0f);
-      const float ez = fmaxf(fabsf(vz - pz) - side, 0.0f);
-      d2 = 0.0f + ex * ex + ey * ey + ez * ez;
-      break;
-    }
-    case kTriangle:
-      d2 = dist2_triangle(vx, vy, vz, p);
-      break;
-    case kQuadricPoint: {
-      // Polynomial inside the support radius dir.z, Wyvill outside.
-      const float ex = vx - px, ey = vy - py, ez = vz - pz;
-      const float dd = dot3(ex, ey, ez, ex, ey, ez);
-      return qz > dd ? dd * dd * p[18] + dd * p[19] + p[20] : wyvill(dd);
-    }
-    default:
-      break;
-  }
-  return wyvill(d2);
-}
-
-// Piecewise-constant lower bound on r(f) = sqrt(1 - f^(1/3)), shared with
-// render/sphere_trace.py support_radius_bound.
-__device__ __forceinline__ float support_radius_bound(float fv) {
-  float r = 0.4542f;
-  if (fv <= 0.30f) r = 0.5749f;
-  if (fv <= 0.20f) r = 0.6444f;
-  if (fv <= 0.15f) r = 0.6846f;
-  if (fv <= 0.10f) r = 0.7320f;
-  if (fv <= 0.05f) r = 0.7947f;
-  if (fv <= 0.02f) r = 0.8536f;
-  if (fv <= 0.005f) r = 0.9105f;
-  if (fv <= 0.001f) r = 0.9487f;
-  if (fv <= 0.0001f) r = 0.9765f;
-  return r;
-}
 
 // CTA-wide bounding box of (x, y, z) over the lanes with m set, written to
 // hull[0..5] = lo xyz, hi xyz (1e30 / -1e30 when no lane is set). Every
@@ -335,17 +200,25 @@ __device__ float field_rest(const Args& a, const Shared& s, float x, float y,
   return f - a.iso;
 }
 
-// One fixed-point pull-back iteration x <- y - u(x) at the estimate
-// (xx, yy, zz) for the deformed point (px, py, pz). Center blocks are culled
-// against the hull of the pmask lanes; only pmask lanes use the result.
+// The affine tail a + B x of the displacement.
+__device__ __forceinline__ void affine_tail(const float* wa, float xx,
+                                            float yy, float zz, float& ux,
+                                            float& uy, float& uz) {
+  ux = wa[0] + wa[1] * xx + wa[2] * yy + wa[3] * zz;
+  uy = wa[4] + wa[5] * xx + wa[6] * yy + wa[7] * zz;
+  uz = wa[8] + wa[9] * xx + wa[10] * yy + wa[11] * zz;
+}
+
+// One Wendland fixed-point pull-back iteration x <- y - u(x) at the
+// estimate (xx, yy, zz) for the deformed point (px, py, pz). Center blocks
+// are culled against the hull of the pmask lanes; only pmask lanes use the
+// result.
 __device__ void pull_one(const Args& a, const Shared& s, float xx, float yy,
                          float zz, float px, float py, float pz, bool pmask,
                          float& ox, float& oy, float& oz) {
   cta_hull(pmask, xx, yy, zz, s.red, s.hull);
-  const float* wa = s.waff;
-  float ux = wa[0] + wa[1] * xx + wa[2] * yy + wa[3] * zz;
-  float uy = wa[4] + wa[5] * xx + wa[6] * yy + wa[7] * zz;
-  float uz = wa[8] + wa[9] * xx + wa[10] * yy + wa[11] * zz;
+  float ux, uy, uz;
+  affine_tail(s.waff, xx, yy, zz, ux, uy, uz);
   for (int b = 0; b < a.n_cb; ++b) {
     if (!s.clive[b] || !hull_meets(s.hull, s.cboxes + 6 * b)) continue;
     if (pmask) {
@@ -377,7 +250,7 @@ __device__ void pull_one(const Args& a, const Shared& s, float xx, float yy,
 // Deformed field minus iso at ray parameter t: on a refresh, pull the
 // model's estimate back once and refit the slope from the refresh-to-
 // refresh secant; then evaluate the rest field at the model's point.
-__device__ float eval_deformed(const Args& a, const Shared& s, const Ray& r,
+__device__ float eval_wendland(const Args& a, const Shared& s, const Ray& r,
                                float t, Carry& c, bool refresh, bool pmask,
                                bool hull_lane, bool need) {
   if (refresh) {
@@ -404,22 +277,55 @@ __device__ float eval_deformed(const Args& a, const Shared& s, const Ray& r,
                     c.zr + a2 * c.vz, hull_lane, need);
 }
 
-template <bool kWendland>
+// Biharmonic-deformed field minus iso at ray parameter t: fp_iters
+// fixed-point iterations from the deformed point over every center, then
+// the rest field at the pulled-back point (its hull cull sees rest points).
+// Lanes whose point neither enters the hull nor is used skip the pull-back.
+__device__ float eval_biharmonic(const Args& a, const Shared& s,
+                                 const Ray& r, float t, bool hull_lane,
+                                 bool need) {
+  const float px = r.ox + t * r.dx, py = r.oy + t * r.dy, pz = r.oz + t * r.dz;
+  float xx = px, yy = py, zz = pz;
+  if (need || (a.dyn_cull && hull_lane)) {
+    for (int it = 0; it < a.fp_iters; ++it) {
+      float ux, uy, uz;
+      affine_tail(s.waff, xx, yy, zz, ux, uy, uz);
+      float sx = 0.0f, sy = 0.0f, sz = 0.0f;
+      for (int j = 0; j < a.n_centers; ++j) {
+        const float dx = xx - s.centers[3 * j], dy = yy - s.centers[3 * j + 1],
+                    dz = zz - s.centers[3 * j + 2];
+        const float d = sqrtf(fmaxf(dx * dx + dy * dy + dz * dz, 1e-24f));
+        sx += s.weights[3 * j] * d;
+        sy += s.weights[3 * j + 1] * d;
+        sz += s.weights[3 * j + 2] * d;
+      }
+      xx = px - (ux + sx);
+      yy = py - (uy + sy);
+      zz = pz - (uz + sz);
+    }
+  }
+  return field_rest(a, s, xx, yy, zz, hull_lane, need);
+}
+
+template <int kMode>
 __device__ __forceinline__ float eval_at(const Args& a, const Shared& s,
                                          const Ray& r, float t, Carry& c,
                                          bool refresh, bool pmask,
                                          bool hull_lane, bool need) {
-  if (kWendland) {
-    return eval_deformed(a, s, r, t, c, refresh, pmask, hull_lane, need);
+  if (kMode == kWendland) {
+    return eval_wendland(a, s, r, t, c, refresh, pmask, hull_lane, need);
+  }
+  if (kMode == kBiharmonic) {
+    return eval_biharmonic(a, s, r, t, hull_lane, need);
   }
   return field_rest(a, s, r.ox + t * r.dx, r.oy + t * r.dy, r.oz + t * r.dz,
                     hull_lane, need);
 }
 
-template <bool kWendland>
+template <int kMode>
 __global__ void trace_additive_kernel(Args a) {
   extern __shared__ float smem[];
-  const Layout L = make_layout(a, kWendland);
+  const Layout L = make_layout(a, kMode);
   const int tile = blockIdx.x;
   const int tid = threadIdx.x;
   const int T = blockDim.x;
@@ -429,20 +335,22 @@ __global__ void trace_additive_kernel(Args a) {
   for (int i = tid; i < a.n_blocks; i += T) live[i] = a.live[tile * a.n_blocks + i];
   Shared s{smem + L.prims, smem + L.boxes, smem + L.red, smem + L.hull, live,
            nullptr, nullptr, nullptr, nullptr, nullptr};
-  if (kWendland) {
-    const int m3 = a.n_cb * a.cen_block * 3;
+  if (kMode != kRest) {
+    const int m3 = a.n_centers * 3;
     for (int i = tid; i < m3; i += T) {
       smem[L.centers + i] = a.centers[i];
       smem[L.weights + i] = a.weights[i];
     }
-    for (int i = tid; i < a.n_cb * 6; i += T) smem[L.cboxes + i] = a.cboxes[i];
     for (int i = tid; i < 12; i += T) smem[L.waff + i] = a.waff[i];
-    int* clive = reinterpret_cast<int*>(smem + L.clive);
-    for (int i = tid; i < a.n_cb; i += T) clive[i] = a.clive[tile * a.n_cb + i];
     s.centers = smem + L.centers;
     s.weights = smem + L.weights;
-    s.cboxes = smem + L.cboxes;
     s.waff = smem + L.waff;
+  }
+  if (kMode == kWendland) {
+    for (int i = tid; i < a.n_cb * 6; i += T) smem[L.cboxes + i] = a.cboxes[i];
+    int* clive = reinterpret_cast<int*>(smem + L.clive);
+    for (int i = tid; i < a.n_cb; i += T) clive[i] = a.clive[tile * a.n_cb + i];
+    s.cboxes = smem + L.cboxes;
     s.clive = clive;
   }
   __syncthreads();
@@ -468,20 +376,20 @@ __global__ void trace_additive_kernel(Args a) {
 
   Carry c{r.ox + t_enter * r.dx, r.oy + t_enter * r.dy, r.oz + t_enter * r.dz,
           r.dx, r.dy, r.dz, t_enter};
-  const float f0 = eval_at<kWendland>(a, s, r, t_enter, c, true, alive0,
-                                      alive0, alive0);
+  const float f0 = eval_at<kMode>(a, s, r, t_enter, c, true, alive0,
+                                  alive0, alive0);
   float t = t_enter, f = f0, t_prev = t_enter, f_prev = f0;
   bool found = alive0 && f0 >= 0.0f;
   bool alive = alive0 && f0 < 0.0f;
 
   // `it` counts sub-steps; the loop test runs once per iteration.
-  const int n_sub = kWendland ? a.k_refresh : 2;
+  const int n_sub = kMode == kWendland ? a.k_refresh : 2;
   int it = 0;
   while (it < a.max_steps && __syncthreads_or(alive)) {
     for (int k = 0; k < n_sub; ++k) {
       const float rr = support_radius_bound(f + a.iso);
       float d = (rr - a.r_iso) * inv_stretch;
-      if (kWendland) {
+      if (kMode == kWendland) {
         // The model's staleness 2 L |t - t_r| comes off d before both
         // deformed-space bounds.
         const float de = d - 2.0f * ldrift * fabsf(t - c.tr);
@@ -491,8 +399,8 @@ __global__ void trace_additive_kernel(Args a) {
       }
       const float dt = fmaxf(a.base_step, 0.95f * d);
       const float t_new = fminf(t + dt, t_exit);
-      const float f_new = eval_at<kWendland>(a, s, r, t_new, c, k == 0,
-                                             alive0, alive0, alive);
+      const float f_new = eval_at<kMode>(a, s, r, t_new, c, k == 0, alive0,
+                                         alive0, alive);
       if (alive) {
         const bool crossed = f_new >= 0.0f;
         const bool done = t_new >= t_exit && f_new < 0.0f;
@@ -512,8 +420,8 @@ __global__ void trace_additive_kernel(Args a) {
   float ta = t_prev, tb = t, fa = f_prev, fb = f;
   for (int i = 0; i < a.bisect_steps; ++i) {
     const float m = 0.5f * (ta + tb);
-    const float fm = eval_at<kWendland>(a, s, r, m, c, i == 0, found, alive0,
-                                        found);
+    const float fm = eval_at<kMode>(a, s, r, m, c, i == 0, found, alive0,
+                                    found);
     if (fm < 0.0f) {
       ta = m;
       fa = fm;
@@ -530,15 +438,15 @@ __global__ void trace_additive_kernel(Args a) {
   a.hit_out[g] = found ? 1.0f : 0.0f;
 }
 
-template <bool kWendland>
+template <int kMode>
 int launch(const Args& a, int tile, void* stream) {
   if (a.n_rays == 0) return 0;
-  const size_t bytes = sizeof(float) * make_layout(a, kWendland).total;
+  const size_t bytes = sizeof(float) * make_layout(a, kMode).total;
   cudaError_t err = cudaFuncSetAttribute(
-      trace_additive_kernel<kWendland>,
+      trace_additive_kernel<kMode>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  trace_additive_kernel<kWendland>
+  trace_additive_kernel<kMode>
       <<<a.n_rays / tile, tile, bytes, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -580,7 +488,7 @@ extern "C" int fb_trace_additive_rest(
   const Args a = common_args(rays, live, boxes, tile_rows, prims, t_out,
                              hit_out, n_rays, n_prims, n_blocks, dyn_cull, iso,
                              r_iso, base_step, max_steps, bisect_steps);
-  return launch<false>(a, tile, stream);
+  return launch<kRest>(a, tile, stream);
 }
 
 // K2: Wendland-deformed trace. Returns a cudaError_t code (0 on success).
@@ -598,13 +506,33 @@ extern "C" int fb_trace_additive_wendland(
   a.centers = centers;
   a.weights = weights;
   a.waff = waff;
+  a.n_centers = n_cb * cen_block;
   a.cboxes = cboxes;
   a.clive = clive;
   a.n_cb = n_cb;
   a.cen_block = cen_block;
   a.inv_sigma = inv_sigma;
   a.k_refresh = k_refresh;
-  return launch<true>(a, tile, stream);
+  return launch<kWendland>(a, tile, stream);
+}
+
+// K4: biharmonic-deformed trace. Returns a cudaError_t code (0 on success).
+extern "C" int fb_trace_additive_biharmonic(
+    const float* rays, const int* live, const float* boxes,
+    const float* tile_rows, const float* prims, float* t_out, float* hit_out,
+    int n_rays, int tile, int n_prims, int n_blocks, int dyn_cull, float iso,
+    float r_iso, float base_step, int max_steps, int bisect_steps,
+    const float* centers, const float* weights, const float* waff,
+    int n_centers, int fp_iters, void* stream) {
+  Args a = common_args(rays, live, boxes, tile_rows, prims, t_out, hit_out,
+                       n_rays, n_prims, n_blocks, dyn_cull, iso, r_iso,
+                       base_step, max_steps, bisect_steps);
+  a.centers = centers;
+  a.weights = weights;
+  a.waff = waff;
+  a.n_centers = n_centers;
+  a.fp_iters = fp_iters;
+  return launch<kBiharmonic>(a, tile, stream);
 }
 
 extern "C" const char* fb_error_string(int code) {

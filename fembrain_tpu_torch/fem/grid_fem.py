@@ -1,7 +1,7 @@
 """Grid-structured corotational FEM: the production solver of the
 coupled frame.
 
-PyTorch counterpart of fembrain_tpu/fem/grid_fem.py (forward only). The
+PyTorch counterpart of fembrain_tpu/fem/grid_fem.py. The
 embedded tet mesh is 6 Kuhn tets per active voxel of a regular grid, so
 displacements live dense on the grid, corner access is 8 static slices,
 assembly is 8 padded adds, and the six shared element stiffnesses apply
@@ -26,6 +26,7 @@ from .integrator import (
     DEFAULT_TIMESTEP,
     FemState,
     pcg,
+    symmetric_solve,
 )
 from .tetmesh import DEFAULT_E, DEFAULT_NU, DEFAULT_RHO, _element_stiffness
 
@@ -651,11 +652,17 @@ def timestep(
     damping_stiffness: float = DEFAULT_DAMPING_STIFFNESS,
     cg_tol: float = CG_TOL,
     cg_max_iters: int = CG_MAX_ITERS,
+    differentiable: bool = False,
+    solve_stats: dict | None = None,
 ) -> tuple[FemState, int]:
     """One implicit Newmark step on the grid with the multigrid-
-    preconditioned CG solve, warm-started from state.dv; returns
-    (new_state, cg_iterations). f_ext is [X,Y,Z,3]. Forward only: the
-    differentiable (adjoint-solve) mode is not ported yet."""
+    preconditioned CG solve; returns (new_state, cg_iterations). f_ext is
+    [X,Y,Z,3]. The forward default warm-starts from state.dv.
+    differentiable=True solves cold through `symmetric_solve`, so
+    gradients reach the element stiffness gf.ke (Young's modulus) and the
+    state through one adjoint CG solve; `solve_stats` then receives the
+    forward and adjoint iteration counts. The multigrid levels keep their
+    own stiffness: the preconditioner is not differentiated."""
     free = gf.free[..., None]
 
     R = kinematics(gf, state.q)
@@ -674,9 +681,10 @@ def timestep(
     mass_coef = 1.0 + h * damping_mass
     stiff_coef = h * damping_stiffness + h * h
 
-    def matvec(v):
+    def operator(v, ke, rot):
+        g = gf if ke is gf.ke else dataclasses.replace(gf, ke=ke)
         vf = torch.where(free, v, 0.0)
-        out = mass_coef * m * vf + stiff_coef * stiffness_apply_rot(gf, R, vf)
+        out = mass_coef * m * vf + stiff_coef * stiffness_apply_rot(g, rot, vf)
         return torch.where(free, out, v)
 
     pre_inv = None
@@ -691,8 +699,19 @@ def timestep(
     def prec(r):
         return vcycle(gf.levels, mass_coef, stiff_coef, r, setup)
 
-    x0 = None if state.dv is None else torch.where(free, state.dv, 0.0)
-    dv, iters = pcg(matvec, residual, prec, cg_tol, cg_max_iters, x0=x0)
+    if differentiable:
+        stats = {} if solve_stats is None else solve_stats
+        dv = symmetric_solve(
+            operator, residual, (gf.ke, R),
+            lambda mv, b: pcg(mv, b, prec, cg_tol, cg_max_iters), stats,
+        )
+        iters = stats["forward_iters"]
+    else:
+        x0 = None if state.dv is None else torch.where(free, state.dv, 0.0)
+        dv, iters = pcg(lambda v: operator(v, gf.ke, R), residual, prec,
+                        cg_tol, cg_max_iters, x0=x0)
+        if solve_stats is not None:
+            solve_stats["forward_iters"] = iters
     qvel = torch.where(free, state.qvel + dv, 0.0)
     q = torch.where(free, state.q + h * qvel, 0.0)
     return FemState(q=q, qvel=qvel, dv=dv), iters

@@ -1,9 +1,11 @@
 """Build and load the package's CUDA kernels.
 
-The sources under csrc/ have a plain C interface. On first use `load`
-compiles them with nvcc for Hopper (sm_90a) into _build/, one shared
-library named by a hash of the source and the flags, and binds it with
-ctypes. Nothing is compiled when the package is imported.
+The sources under csrc/ (`*.cu`, with shared `*.cuh` headers) have a plain
+C interface. On first use `build` compiles every source with nvcc for
+Hopper (sm_90a), one nvcc process per source, all started together, and
+links the objects into one shared library in _build/, named by a hash of
+the sources, the headers and the flags; `load` binds it with ctypes.
+Nothing is compiled when the package is imported.
 """
 from __future__ import annotations
 
@@ -15,12 +17,13 @@ import subprocess
 from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
-SOURCE = _HERE / "csrc" / "trace_additive.cu"
+CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
-NVCC_FLAGS = (
+COMPILE_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -29,16 +32,23 @@ _COMMON = [_P] * 7 + [_I] * 5 + [_F] * 3 + [_I] * 2
 _SIGNATURES = {
     "fb_trace_additive_rest": _COMMON + [_P],
     "fb_trace_additive_wendland": _COMMON + [_P] * 5 + [_I, _I, _F, _I, _P],
+    "fb_trace_additive_biharmonic": _COMMON + [_P] * 3 + [_I, _I, _P],
+    "fb_trace_general": [_P] * 7 + [_I] * 10 + [_F] * 4 + [_I] * 2 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None
 
 
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
 def library_path() -> Path:
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"trace_additive-{digest}.so"
+    h = hashlib.sha256()
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode() + path.read_bytes())
+    h.update(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    return BUILD_DIR / f"fembrain_kernels-{h.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:
@@ -55,21 +65,42 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile the kernels unless this source is already built; returns
+    """Compile the kernels unless these sources are already built; returns
     the library path. The compiler's report (registers, shared memory,
-    spills) is kept beside it as a .log file."""
+    spills per kernel) is kept beside it as a .log file."""
     path = library_path()
     if path.exists():
         return path
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+    nvcc = _nvcc()
+    tag = f"{path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for src, obj in zip(sources(), objs)
+    ]
+    logs, failed = [], []
+    for src, proc in zip(sources(), procs):
+        out, _ = proc.communicate()
+        logs.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    link = subprocess.run(
+        [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)],
         capture_output=True, text=True,
     )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                           f"{link.stderr}")
+    path.with_suffix(".log").write_text("\n".join(logs) + link.stderr)
     os.replace(tmp, path)
     return path
 

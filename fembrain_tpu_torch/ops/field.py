@@ -4,8 +4,9 @@ PyTorch counterpart of fembrain_tpu/ops/field.py. All primitive fields
 for all points are evaluated as one batched computation, then operators
 are folded in topological order, unrolled in Python over the scene's
 static wiring. The same per-type distance code (`rows_prim_fields`) is
-the plain version of the prim evaluator inside the CUDA trace kernel
-(csrc/trace_additive.cu).
+the plain version of the prim evaluator inside the CUDA trace kernels
+(csrc/prim_field.cuh), and `field_rows` that of the general kernel's
+per-point field (csrc/trace_general.cu).
 
 Scenes with more than UNROLL_LIMIT scheduled ops (the reference's
 register-allocated scan fold) are not ported yet.
@@ -16,7 +17,7 @@ import torch
 
 from ..blob.scene import Scene
 from ..blob.types import OpType, PrimType
-from .warp import warp_point
+from .warp import warp_components, warp_point
 
 _BIG = 10.0  # reference's "far" squared distance for NULL prims
 
@@ -370,6 +371,56 @@ def field(scene: Scene, points: torch.Tensor) -> torch.Tensor:
     return _fold(scene, prim_fields(scene, pts)).reshape(shape)
 
 
+def field_rows(scene: Scene, x: torch.Tensor, y: torch.Tensor,
+               z: torch.Tensor) -> torch.Tensor:
+    """Per-point field evaluation on component tensors x, y, z [N] -> [N]
+    (fembrain_tpu/ops/field.py `field_rows`): every warp group's chain is
+    applied root-first to the components, prims take their group's local
+    coordinates, and the unrolled op fold follows the schedule. The plain
+    version of the general tile-trace kernel's field evaluator
+    (csrc/trace_general.cu)."""
+    if not supports_rows_fast_path(scene):
+        raise NotImplementedError(
+            f"scan fold for {len(scene.schedule)} ops (> {UNROLL_LIMIT}) "
+            "is not ported"
+        )
+    x, y, z = x[:, None], y[:, None], z[:, None]
+    mtx = scene.prim_mtx[None]
+    plain = len(scene.warp_groups) == 1 and not scene.warp_groups[0][0]
+    if plain:
+        vt = local_coords(x, y, z, mtx)
+    else:
+        # Prims sharing a warp chain see the chain-warped point; rows are
+        # stitched by static group masks, prims of no group take the first
+        # group's coordinates (they are never folded).
+        vt = None
+        for chain, prim_idx in scene.warp_groups:
+            if not prim_idx:
+                continue
+            wx, wy, wz = x, y, z
+            for wire in chain:
+                p = tuple(scene.op_params[wire.op_idx, i] for i in range(4))
+                wx, wy, wz = warp_components(
+                    wire.wtype, p, wire.axis_a, wire.axis_b, wx, wy, wz
+                )
+            vt_g = local_coords(wx, wy, wz, mtx)
+            if vt is None:
+                vt = vt_g
+            else:
+                mask = torch.zeros(scene.capacity_prims, dtype=torch.bool,
+                                   device=x.device)
+                mask[list(prim_idx)] = True
+                vt = tuple(torch.where(mask, vt_g[i], vt[i]) for i in range(3))
+    pos_c = tuple(scene.prim_pos[:, i][None] for i in range(3))
+    dir_c = tuple(scene.prim_dir[:, i][None] for i in range(3))
+    res_c = tuple(scene.prim_res[:, i][None] for i in range(4))
+    pf = rows_prim_fields(vt, pos_c, dir_c, res_c, scene.prim_type[None],
+                          scene.prim_types_present)           # [N, P]
+    if not scene.root_is_op:
+        return torch.sum(pf[:, : scene.n_prims], -1)
+    return _fold_unrolled(scene, pf)
+
+
 def gradient(scene: Scene, points: torch.Tensor) -> torch.Tensor:
     """∇field at points [..., 3] -> [..., 3] via autograd (the value only;
     the result carries no graph)."""
@@ -377,3 +428,10 @@ def gradient(scene: Scene, points: torch.Tensor) -> torch.Tensor:
         p = points.detach().requires_grad_(True)
         (g,) = torch.autograd.grad(field(scene, p).sum(), p)
     return g
+
+
+def normal(scene: Scene, points: torch.Tensor) -> torch.Tensor:
+    """Outward surface normal -∇f / |∇f| (Polygonizer.cl:1152-1173)."""
+    g = gradient(scene, points)
+    n2 = torch.sum(g * g, -1, keepdim=True)
+    return -g * torch.rsqrt(torch.clamp(n2, min=1e-24))

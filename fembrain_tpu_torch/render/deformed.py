@@ -1,13 +1,18 @@
-"""Coupled render+deform through a Wendland RBF displacement field.
+"""Coupled render+deform through an RBF displacement field.
 
-PyTorch counterpart of the Wendland part of
-fembrain_tpu/render/deformed.py (forward only). The FEM displacement is
-interpolated by a compact-support Wendland C2 RBF u(x) over M centers
-picked among the mesh nodes; the deformed field F(y) = f(x) with
-x = y - u(x) is traced by the tile tracer's K2 mode
-(`trace_deformed_rbf_fast`), or densely by `trace_deformed_rbf`, the
-exact plain tracer it is checked against. `coupled_step_grid_fast` is
-the production coupled frame: grid-FEM step -> RBF weights -> trace.
+PyTorch counterpart of the RBF part of fembrain_tpu/render/deformed.py.
+The FEM displacement is interpolated by an RBF u(x) over M centers picked
+among the mesh nodes: the biharmonic kernel |x - c| with an affine tail
+(the default, global support) or the compact-support Wendland C2 kernel.
+The deformed field F(y) = f(x) with x = y - u(x) is traced by the tile
+tracer (`trace_deformed_rbf_fast`: K4 for the biharmonic kind, K2 for the
+Wendland kind) or densely by `trace_deformed_rbf`, the exact plain tracer
+they are checked against. Either way the hit parameter's gradient comes
+from implicit differentiation at the root against the dense deformed
+field (sphere_trace.newton_nudge), so image losses reach the RBF weights
+and through them the FEM state. `coupled_step_grid_fast` is the coupled
+frame: grid-FEM step -> RBF weights -> trace, differentiable in Young's
+modulus with `differentiable=True`.
 """
 from __future__ import annotations
 
@@ -17,16 +22,17 @@ import numpy as np
 import torch
 
 from ..blob.scene import Scene
-from ..ops.field import field
+from ..ops.field import field, supports_rows_fast_path
 from .sphere_trace import (
     TraceParams, _ray_box, march_all, newton_nudge, prim_interval,
     support_radius_bound,
 )
 from .tile_trace import (
-    CEN_BLOCK, TILE, WendlandSpec, trace_tiles, trace_tiles_image,
+    CEN_BLOCK, TILE, BiharmonicSpec, WendlandSpec, is_additive_path,
+    trace_tiles, trace_tiles_image,
 )
 
-# Pull-back fixed-point iterations of the dense tracer.
+# Pull-back fixed-point iterations of the dense tracer and of K4.
 FIXED_POINT_ITERS = 2
 
 # Wendland support radius as a multiple of the center fill distance.
@@ -37,19 +43,26 @@ WENDLAND_DPHI_MAX = 2.109375
 
 @dataclasses.dataclass(frozen=True)
 class DispInterp:
-    """Static Wendland displacement-interpolation operator for one mesh:
-    u = sum_k w_k phi(|x - c_k| / sigma), phi(t) = (1-t)^4 (4t+1) on
-    [0, 1], with no affine tail (the weights' affine rows are zero)."""
+    """Static displacement-interpolation operator for one mesh:
+    u = sum_k w_k phi(|x - c_k|) + a + B x with
+
+    * kind "biharmonic": phi(r) = r, global support, the affine tail
+      required by the saddle system;
+    * kind "wendland": phi(r) = (1-t)^4 (4t+1), t = r / sigma clamped to 1,
+      compact support and no affine tail (its weight rows are zero)."""
 
     centers: torch.Tensor       # [M, 3] world positions of the chosen nodes
     center_nodes: torch.Tensor  # [M] int32 FEM node ids
     a_inv: torch.Tensor         # [M+4, M+4] inverse of the kernel system
     fill_dist: torch.Tensor     # [] farthest node-to-nearest-center distance
-    kind: str = "wendland"
+    kind: str = "biharmonic"
     sigma: float = 0.0
 
 
 def _phi_dist(interp: DispInterp, d: torch.Tensor) -> torch.Tensor:
+    """Kernel value from distance(s) d (any shape)."""
+    if interp.kind == "biharmonic":
+        return d
     t = torch.clamp(d * (1.0 / interp.sigma), max=1.0)
     omt = 1.0 - t
     o2 = omt * omt
@@ -58,10 +71,27 @@ def _phi_dist(interp: DispInterp, d: torch.Tensor) -> torch.Tensor:
 
 def _dphi_over_d(interp: DispInterp, d: torch.Tensor) -> torch.Tensor:
     """(d phi / d r) / r at distance d: grad_x phi(|x-c|) = this * (x-c)."""
+    if interp.kind == "biharmonic":
+        return 1.0 / torch.clamp(d, min=1e-12)
     s = 1.0 / interp.sigma
     t = torch.clamp(d * s, max=1.0)
     omt = 1.0 - t
     return -20.0 * omt * omt * omt * (s * s)
+
+
+def _kernel_lipschitz_coef(interp: DispInterp) -> float:
+    """max_r |d phi / d r|: 1 for biharmonic, 2.109/sigma for Wendland."""
+    if interp.kind == "biharmonic":
+        return 1.0
+    return WENDLAND_DPHI_MAX / interp.sigma
+
+
+def adaptive_centers(n_nodes: int) -> int:
+    """Center count scaled to mesh size: ~cbrt growth, clamped to
+    [64, 512] and rounded up to a multiple of 8 (112 for brain's 8,308
+    nodes)."""
+    m = int(16 * round(n_nodes ** (1.0 / 3.0) / 3.0))
+    return max(64, min(512, (m + 7) // 8 * 8))
 
 
 def _morton_order(pts) -> np.ndarray:
@@ -84,30 +114,45 @@ def _morton_order(pts) -> np.ndarray:
     return np.argsort(code, kind="stable")
 
 
-def _factor_interp(c, sigma: float) -> np.ndarray:
-    """Inverse of the Wendland interpolation system for centers c [M, 3]
-    (float64, host), embedded in the [M+4, M+4] layout with zero affine
-    rows. The kernel is positive definite, so no polynomial tail is
-    needed, and without one u is exactly zero beyond sigma of every
-    center."""
+def _factor_interp(c, kind: str, sigma: float) -> np.ndarray:
+    """Inverse of the interpolation system for centers c [M, 3] (float64,
+    host) in the [M+4, M+4] layout. Biharmonic: the saddle system
+    [[phi, P], [P^T, 0]], P = [1, x] (|x-c| is only conditionally positive
+    definite, so the tail is required). Wendland: the kernel is positive
+    definite, so the tail is dropped and u is exactly zero beyond sigma of
+    every center; the affine rows of the inverse stay zero."""
     m = len(c)
     d = np.linalg.norm(c[:, None] - c[None], axis=-1)
     a = np.zeros((m + 4, m + 4))
+    if kind == "biharmonic":
+        p = np.concatenate([np.ones((m, 1)), c], 1)
+        a[:m, :m] = d + 1e-9 * np.eye(m)
+        a[:m, m:] = p
+        a[m:, :m] = p.T
+        return np.linalg.inv(a)
     t = np.minimum(d / sigma, 1.0)
     phi = (1.0 - t) ** 4 * (4.0 * t + 1.0)
     a[:m, :m] = np.linalg.inv(phi + 1e-9 * np.eye(m))
     return a
 
 
-def build_disp_interp(nodes, n_centers: int,
+def build_disp_interp(nodes, n_centers: int | None = None, fixed=None,
+                      kernel: str = "biharmonic",
                       sigma_fill: float = WENDLAND_SIGMA_FILL,
+                      extra_centers=None, sigma: float | None = None,
                       device: torch.device | str = "cpu") -> DispInterp:
-    """Farthest-point-sample `n_centers` FEM nodes, Morton-order them so
-    the tracer's center blocks are spatially tight, and factor the
-    Wendland system (float64 host math, once per mesh topology). The
-    support is sigma = sigma_fill * max(fill distance, median center
-    spacing)."""
+    """Farthest-point-sample `n_centers` FEM nodes (None: adaptive_centers)
+    and factor the kernel system (float64 host math, once per mesh
+    topology). `fixed` is accepted as in the reference and not read:
+    anchored nodes are pinned by their zero displacement rows.
+    extra_centers are node ids appended after the pick. Wendland centers
+    are Morton-ordered so the tracer's center blocks are spatially tight;
+    the support is sigma = sigma_fill * max(fill distance, median center
+    spacing) unless `sigma` is given."""
+    del fixed
     nodes = np.asarray(nodes, np.float64)
+    if n_centers is None:
+        n_centers = adaptive_centers(len(nodes))
     m = min(n_centers, len(nodes))
     sel = [0]
     d = np.linalg.norm(nodes - nodes[0], axis=-1)
@@ -115,29 +160,44 @@ def build_disp_interp(nodes, n_centers: int,
         i = int(np.argmax(d))
         sel.append(i)
         d = np.minimum(d, np.linalg.norm(nodes - nodes[i], axis=-1))
+    if extra_centers is not None:
+        for i in np.asarray(extra_centers).tolist():
+            if i not in sel:
+                sel.append(int(i))
+                d = np.minimum(d, np.linalg.norm(nodes - nodes[int(i)],
+                                                 axis=-1))
     idx = np.asarray(sel, np.int64)
     fill = float(np.max(d))
-    idx = idx[_morton_order(nodes[idx])]
+    if kernel != "biharmonic":
+        idx = idx[_morton_order(nodes[idx])]
     c = nodes[idx]
-    pair = np.linalg.norm(c[:, None] - c[None], axis=-1)
-    np.fill_diagonal(pair, np.inf)
-    spacing = float(np.median(pair.min(1))) if len(c) > 1 else 1.0
-    sigma = sigma_fill * max(fill, spacing, 1e-6)
+    if sigma is None:
+        pair = np.linalg.norm(c[:, None] - c[None], axis=-1)
+        np.fill_diagonal(pair, np.inf)
+        spacing = float(np.median(pair.min(1))) if len(c) > 1 else 1.0
+        sigma = sigma_fill * max(fill, spacing, 1e-6)
     return DispInterp(
         centers=torch.as_tensor(c.astype(np.float32), device=device),
         center_nodes=torch.as_tensor(idx.astype(np.int32), device=device),
-        a_inv=torch.as_tensor(_factor_interp(c, sigma).astype(np.float32),
-                              device=device),
+        a_inv=torch.as_tensor(
+            _factor_interp(c, kernel, sigma).astype(np.float32),
+            device=device),
         fill_dist=torch.tensor(fill, dtype=torch.float32, device=device),
-        kind="wendland",
+        kind=kernel,
         sigma=float(sigma),
     )
 
 
 def disp_weights_centers(interp: DispInterp, u_c: torch.Tensor):
-    """RBF weights from displacements at the centers: [M+4, 3]."""
+    """RBF weights from displacements at the centers: [M+4, 3], linear in
+    u_c, so gradients flow through."""
     rhs = torch.cat([u_c, u_c.new_zeros((4, 3))], 0)
     return interp.a_inv @ rhs
+
+
+def disp_weights(interp: DispInterp, q: torch.Tensor):
+    """RBF weights from the nodal FEM state q [N, 3]: [M+4, 3]."""
+    return disp_weights_centers(interp, q[interp.center_nodes.long()])
 
 
 def sample_disp_rbf(interp: DispInterp, w: torch.Tensor,
@@ -151,14 +211,52 @@ def sample_disp_rbf(interp: DispInterp, w: torch.Tensor,
     return u + w[m] + pts @ w[m + 1:]
 
 
+def disp_lipschitz(interp: DispInterp, w: torch.Tensor) -> torch.Tensor:
+    """Certified bound on |grad u|: coef * sum_k |w_k| + |B|_F."""
+    m = interp.centers.shape[0]
+    return (_kernel_lipschitz_coef(interp)
+            * torch.sum(torch.sqrt(torch.sum(w[:m] ** 2, -1)))
+            + torch.sqrt(torch.sum(w[m + 1:] ** 2)))
+
+
+def disp_slack(interp: DispInterp, w: torch.Tensor) -> torch.Tensor:
+    """2 * (bound on max |u| over the tissue): u interpolates its center
+    values, so max|u| <= max_j |u(c_j)| + L * fill_dist."""
+    u_c = sample_disp_rbf(interp, w, interp.centers)
+    return 2.0 * (torch.amax(torch.sqrt(torch.sum(u_c ** 2, -1)))
+                  + disp_lipschitz(interp, w) * interp.fill_dist)
+
+
+def disp_bounds_sampled(interp: DispInterp, w: torch.Tensor,
+                        pts: torch.Tensor, l_safety: float = 1.25,
+                        u_safety: float = 1.15):
+    """(shrink, slack) march-step factors from |grad u| and |u| sampled at
+    `pts` (mesh nodes), extended between samples by the safety factors.
+    Constants: they steer the march and carry no gradient."""
+    with torch.no_grad():
+        m = interp.centers.shape[0]
+        diff = pts[:, None] - interp.centers[None]                  # [N, M, 3]
+        d = torch.sqrt(torch.clamp(torch.sum(diff ** 2, -1), min=1e-24))
+        u = _phi_dist(interp, d) @ w[:m] + w[m] + pts @ w[m + 1:]
+        g = torch.einsum("nka,kb->nab", diff * _dphi_over_d(interp, d)[..., None],
+                         w[:m]) + w[m + 1:]
+        l_max = torch.sqrt(torch.amax(torch.sum(g ** 2, (-2, -1))))
+        u_max = torch.sqrt(torch.amax(torch.sum(u ** 2, -1)))
+        return (torch.clamp(1.0 - l_safety * l_max, 0.0, 1.0),
+                2.0 * u_safety * u_max)
+
+
 def wendland_spec(interp: DispInterp, w: torch.Tensor,
                   k_refresh: int = 0) -> WendlandSpec:
-    """Per-frame spec for the deformed tile trace: centers padded to a
-    CEN_BLOCK multiple (pad rows at 1e6 with zero weights never test
+    """Per-frame spec for the Wendland tile trace (K2): centers padded to
+    a CEN_BLOCK multiple (pad rows at 1e6 with zero weights never test
     live), plus per-block |u| and |grad u| maxima sampled at the centers
     (exact there, extended between samples by the march's 1.15 / 1.25
     safety factors). Each eval of the trace refreshes with one
     fixed-point pull-back iteration."""
+    if interp.kind != "wendland":
+        raise ValueError(f"wendland_spec needs a Wendland interpolant, got "
+                         f"{interp.kind!r}")
     m = interp.centers.shape[0]
     mp = -(-m // CEN_BLOCK) * CEN_BLOCK
     dev = interp.centers.device
@@ -208,23 +306,30 @@ def deformed_field_rbf(scene: Scene, interp: DispInterp, w: torch.Tensor,
     return field(scene, pull_back_rbf(interp, w, y, iters))
 
 
-def _disp_lipschitz(interp: DispInterp, w: torch.Tensor) -> torch.Tensor:
-    """Certified bound on |grad u|: coef * sum_k |w_k| + |B|_F."""
-    m = interp.centers.shape[0]
-    return (WENDLAND_DPHI_MAX / interp.sigma
-            * torch.sum(torch.sqrt(torch.sum(w[:m] ** 2, -1)))
-            + torch.sqrt(torch.sum(w[m + 1:] ** 2)))
+def march_step_bounds(interp: DispInterp, w: torch.Tensor,
+                      bound_pts: torch.Tensor | None = None):
+    """The deformed march's (shrink, slack) step factors, as constants:
+    sampled at `bound_pts` (disp_bounds_sampled) or, without them, the
+    certified global bounds clamp(1 - L, 0, 1) and disp_slack."""
+    if bound_pts is not None:
+        return disp_bounds_sampled(interp, w.detach(), bound_pts)
+    with torch.no_grad():
+        return (torch.clamp(1.0 - disp_lipschitz(interp, w), 0.0, 1.0),
+                disp_slack(interp, w))
 
 
 def trace_deformed_rbf(scene: Scene, interp: DispInterp, w: torch.Tensor,
                        ro: torch.Tensor, rd: torch.Tensor,
                        params: TraceParams = TraceParams(),
                        max_disp: float = 0.5,
-                       fp_iters: int = FIXED_POINT_ITERS):
+                       fp_iters: int = FIXED_POINT_ITERS,
+                       bound_pts: torch.Tensor | None = None):
     """Dense sphere trace of the RBF-deformed field: every eval pulls
     back through all centers with `fp_iters` fixed-point iterations from
-    scratch; steps use the certified global bounds (1 - L) d and
-    d - 2 max|u|. The exact plain tracer the tile trace is held to."""
+    scratch; steps use max((1 - L) d, d - 2 max|u|) with (shrink, slack)
+    sampled at `bound_pts` or, without them, the certified global bounds.
+    The exact plain tracer the tile traces are held to; t is
+    differentiable in w (and the scene) by implicit differentiation."""
     iso = params.iso
     lo = scene.bbox_lo - 0.05 - max_disp
     hi = scene.bbox_hi + 0.05 + max_disp
@@ -238,11 +343,7 @@ def trace_deformed_rbf(scene: Scene, interp: DispInterp, w: torch.Tensor,
         t_exit = torch.where(alive0, t_exit, 0.0)
     base_step = torch.linalg.norm(hi - lo) * params.step_frac
     inv_stretch = 1.0 / max(scene.max_world_to_local_scale, 1e-6)
-    lip = _disp_lipschitz(interp, w)
-    shrink = torch.clamp(1.0 - lip, 0.0, 1.0)
-    u_c = sample_disp_rbf(interp, w, interp.centers)
-    slack = 2.0 * (torch.amax(torch.sqrt(torch.sum(u_c ** 2, -1)))
-                   + lip * interp.fill_dist)
+    shrink, slack = march_step_bounds(interp, w, bound_pts)
 
     def step_size(fv):
         if not scene.monotone_field:
@@ -256,36 +357,79 @@ def trace_deformed_rbf(scene: Scene, interp: DispInterp, w: torch.Tensor,
         return deformed_field_rbf(scene, interp, w, ro + t[:, None] * rd,
                                   fp_iters) - iso
 
-    t_root, found = march_all(eval_f, step_size, t_enter, t_exit, alive0,
-                              params)
-
-    def f_and_grad(x):
-        with torch.enable_grad():
-            p = x.detach().requires_grad_(True)
-            f = deformed_field_rbf(scene, interp, w, p, fp_iters)
-            (g,) = torch.autograd.grad(f.sum(), p)
-        return f.detach() - iso, g
-
-    t_hit = newton_nudge(f_and_grad, ro, rd, t_root, found, 0.5 * base_step)
+    with torch.no_grad():
+        t_root, found = march_all(eval_f, step_size, t_enter, t_exit,
+                                  alive0, params)
+    t_hit = newton_nudge(
+        lambda p: deformed_field_rbf(scene, interp, w, p, fp_iters) - iso,
+        ro, rd, t_root, found, 0.5 * base_step,
+    )
     return t_hit, found
+
+
+def biharmonic_spec(interp: DispInterp, w: torch.Tensor, shrink, slack,
+                    max_disp: float = 0.5,
+                    fp_iters: int = FIXED_POINT_ITERS) -> BiharmonicSpec:
+    """Per-frame spec for the biharmonic tile trace (K4): the centers, the
+    weights and the global march-step factors, as constants."""
+    return BiharmonicSpec(
+        centers=interp.centers.float().contiguous(),
+        w=w.detach().float(),
+        shrink=torch.as_tensor(shrink).detach().float(),
+        slack=torch.as_tensor(slack).detach().float(),
+        max_disp=float(max_disp),
+        fp_iters=int(fp_iters),
+    )
 
 
 def trace_deformed_rbf_fast(scene: Scene, interp: DispInterp,
                             w: torch.Tensor, ro: torch.Tensor,
                             rd: torch.Tensor,
                             params: TraceParams = TraceParams(),
+                            max_disp: float = 0.5,
                             image_hw: tuple[int, int] | None = None,
-                            tile: int = TILE, k_refresh: int = 0):
-    """RBF-deformed sphere trace through the tile tracer's Wendland mode
-    (K2): (t [N], hit [N]), the raw in-tracer roots (bisection + secant
-    against the deformed field). image_hw enables the block-coherent
-    pixel permutation for row-major H x W ray grids. Brackets inflate by
-    this frame's |u| bound."""
-    disp = wendland_spec(interp, w, k_refresh=k_refresh)
-    if image_hw is not None:
-        return trace_tiles_image(scene, ro, rd, image_hw[0], image_hw[1],
-                                 params, tile, disp)
-    return trace_tiles(scene, ro, rd, params, tile, disp)
+                            fp_iters: int = FIXED_POINT_ITERS,
+                            need_grads: bool = True,
+                            bound_pts: torch.Tensor | None = None,
+                            tile: int | None = None, k_refresh: int = 0):
+    """RBF-deformed sphere trace through the tile tracer: K4 for a
+    biharmonic interpolant (fp_iters pull-back iterations from scratch per
+    eval, global (shrink, slack) from `bound_pts` or the certified
+    bounds, brackets inflated by the static `max_disp`), K2 for a
+    Wendland one (per-tile bounds from the compact support, brackets
+    inflated by this frame's |u| bound). The kernel's raw roots are
+    constants; with need_grads the implicit-differentiation correction
+    against the dense deformed field makes t differentiable in w.
+    image_hw enables the block-coherent pixel permutation for row-major
+    H x W ray grids. Scenes off the additive tile path take the dense
+    tracer."""
+    tile = TILE if tile is None else tile
+    if not (is_additive_path(scene) and supports_rows_fast_path(scene)):
+        return trace_deformed_rbf(scene, interp, w, ro, rd, params, max_disp,
+                                  fp_iters, bound_pts=bound_pts)
+    wd = w.detach()
+    if interp.kind == "wendland":
+        disp = wendland_spec(interp, wd, k_refresh=k_refresh)
+    else:
+        shrink, slack = march_step_bounds(interp, wd, bound_pts)
+        disp = biharmonic_spec(interp, wd, shrink, slack, max_disp, fp_iters)
+    with torch.no_grad():
+        if image_hw is not None:
+            t_root, found = trace_tiles_image(scene, ro, rd, image_hw[0],
+                                              image_hw[1], params, tile, disp)
+        else:
+            t_root, found = trace_tiles(scene, ro, rd, params, tile, disp)
+    if not need_grads:
+        return t_root, found
+    iso = params.iso
+    lo = scene.bbox_lo - 0.05 - max_disp
+    hi = scene.bbox_hi + 0.05 + max_disp
+    base_step = torch.linalg.norm(hi - lo) * params.step_frac
+    t_hit = newton_nudge(
+        lambda p: deformed_field_rbf(scene, interp, w, p, fp_iters) - iso,
+        ro, rd, t_root, found, 0.5 * base_step,
+    )
+    return t_hit, found
 
 
 def coupled_step_grid_fast(scene: Scene, gf, interp: DispInterp,
@@ -293,24 +437,49 @@ def coupled_step_grid_fast(scene: Scene, gf, interp: DispInterp,
                            state, f_ext: torch.Tensor,
                            ro: torch.Tensor, rd: torch.Tensor,
                            h: float = 0.0333,
+                           E_scale: torch.Tensor | float | None = 1.0,
                            params: TraceParams = TraceParams(),
                            image_hw: tuple[int, int] | None = None,
+                           differentiable: bool = False,
                            cg_tol: float | None = None,
-                           tile: int = TILE, k_refresh: int = 0):
-    """The production coupled frame: grid-FEM implicit step -> Wendland
-    weights from the centers' displacements -> deformed tile trace.
-    `gf` is a fem.grid_fem.GridFem, `state` a grid FemState ([X,Y,Z,3]
-    fields), f_ext [X,Y,Z,3], and `center_grid_idx` [M] maps the
-    interpolant's centers to flat grid vertices. Returns
+                           max_disp: float = 0.5,
+                           fp_iters: int = FIXED_POINT_ITERS,
+                           bound_pts: torch.Tensor | None = None,
+                           tile: int = TILE, k_refresh: int = 0,
+                           solve_stats: dict | None = None):
+    """The coupled frame: grid-FEM implicit step -> RBF weights from the
+    centers' displacements -> deformed tile trace. `gf` is a
+    fem.grid_fem.GridFem, `state` a grid FemState ([X,Y,Z,3] fields),
+    f_ext [X,Y,Z,3], and `center_grid_idx` [M] maps the interpolant's
+    centers to flat grid vertices. E_scale scales the element stiffness
+    (Young's modulus). differentiable=True is the training step: the
+    solve runs cold and adjoint-differentiable, and the trace applies its
+    implicit-differentiation correction, so a loss on t reaches E_scale.
+    `solve_stats`, if given, receives the CG iteration counts. Returns
     (t, hit, new_state, cg_iterations)."""
     from ..fem import grid_fem as gfm
 
+    gf2 = gf if E_scale is None else dataclasses.replace(gf,
+                                                         ke=gf.ke * E_scale)
     kw = {} if cg_tol is None else {"cg_tol": cg_tol}
-    new_state, iters = gfm.timestep(gf, state, f_ext, h=h, **kw)
+    new_state, iters = gfm.timestep(gf2, state, f_ext, h=h,
+                                    differentiable=differentiable,
+                                    solve_stats=solve_stats, **kw)
     u_c = new_state.q.reshape(-1, 3)[center_grid_idx]
     w = disp_weights_centers(interp, u_c)
     t, hit = trace_deformed_rbf_fast(
-        scene, interp, w, ro, rd, params, image_hw=image_hw, tile=tile,
-        k_refresh=k_refresh,
+        scene, interp, w, ro, rd, params, max_disp=max_disp,
+        image_hw=image_hw, fp_iters=fp_iters, need_grads=differentiable,
+        bound_pts=bound_pts, tile=tile, k_refresh=k_refresh,
     )
     return t, hit, new_state, iters
+
+
+def max_disp_bound(interp: DispInterp, w: torch.Tensor,
+                   q: torch.Tensor) -> torch.Tensor:
+    """Per-frame upper bound on |u(x)| over the tissue: u interpolates the
+    nodal state q [N, 3] at the centers, so max|u| <= max_j |q(c_j)| +
+    L * fill_dist with L = disp_lipschitz(w). Checks that a static
+    `max_disp` bracket inflation covers the frame."""
+    u_c = torch.sqrt(torch.sum(q[interp.center_nodes.long()] ** 2, -1))
+    return torch.amax(u_c) + disp_lipschitz(interp, w) * interp.fill_dist

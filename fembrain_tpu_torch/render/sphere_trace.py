@@ -1,12 +1,13 @@
 """Sphere tracing of the BlobTree field in plain torch: ray brackets, the
 shared step table, and the reference tracer.
 
-PyTorch counterpart of fembrain_tpu/render/sphere_trace.py (forward
-only). Rays march in lock-step as one [N] batch with an all-rays-done
-exit; the step adapts with the Wyvill support bound; roots are refined by
-bisection plus a secant, then nudged by one implicit-differentiation
-Newton step. The tile tracer (render.tile_trace) shares `prim_interval`
-and `support_radius_bound` with it, so both march identical steps.
+PyTorch counterpart of fembrain_tpu/render/sphere_trace.py. Rays march
+in lock-step as one [N] batch with an all-rays-done exit; the step adapts
+with the Wyvill support bound; roots are refined by bisection plus a
+secant, then nudged by one implicit-differentiation Newton step, which
+carries the gradient (`newton_nudge`). The tile tracer
+(render.tile_trace) shares `prim_interval`, `support_radius_bound` and
+`newton_nudge` with it, so both march identical steps.
 """
 from __future__ import annotations
 
@@ -14,10 +15,11 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..blob.scene import Scene
 from ..blob.types import ISO_VALUE
-from ..ops.field import field, gradient
+from ..ops.field import field
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,21 +157,51 @@ def march_all(eval_f, step_size, t_enter, t_exit, alive0,
     return torch.where(found, t_root, t_exit), found
 
 
-def newton_nudge(f_and_grad, ro, rd, t_root, found, cap):
-    """One implicit-differentiation Newton step at the root (the value of
-    the reference's gradient-carrying correction), clamped to `cap`."""
-    x0 = ro + t_root[:, None] * rd
-    f_at, g = f_and_grad(x0)
-    dfdt = torch.sum(g * rd, -1)
-    dfdt = torch.where(torch.abs(dfdt) < 1e-6,
-                       torch.where(dfdt < 0, -1e-6, 1e-6), dfdt)
-    t_hit = t_root - torch.clamp(f_at / dfdt, -cap, cap)
-    return torch.where(found, t_hit, t_root)
+# Hit rays per chunk of the implicit-differentiation correction: bounds the
+# dense field temporaries (and, under autograd, what backward keeps) at
+# 1080p, where a [rays, prims] f32 temporary is over a gigabyte.
+CORRECTION_CHUNK = 1 << 16
+
+
+def newton_nudge(field_fn, ro, rd, t_root, found, cap):
+    """Implicit differentiation of F(ro + t rd) = iso at the root.
+
+    t_root and the slope dF/dt are constants (the reference's
+    stop_gradient); the returned t = t0 - clamp(f_at / dfdt, +-cap) carries
+    dt/dθ = -F_θ / (∇F · rd) through f_at = field_fn(x0), the field minus
+    iso at x0 = ro + t0 rd. Only hit rays are corrected (misses return
+    t0). Their correction runs in chunks of CORRECTION_CHUNK rays, each
+    recomputed in backward, so memory stays bounded at any image size."""
+    t0 = t_root.detach()
+    idx = torch.nonzero(found).squeeze(-1)
+    if idx.numel() == 0:
+        return t0
+    x0 = ro[idx] + t0[idx, None] * rd[idx]
+    rdh = rd[idx].detach()
+    grad_on = torch.is_grad_enabled()
+    corr = []
+    for i in range(0, idx.numel(), CORRECTION_CHUNK):
+        x = x0[i : i + CORRECTION_CHUNK]
+        with torch.enable_grad():
+            p = x.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(field_fn(p).sum(), p)
+        dfdt = torch.sum(g * rdh[i : i + CORRECTION_CHUNK], -1)
+        dfdt = torch.where(torch.abs(dfdt) < 1e-6,
+                           torch.where(dfdt < 0, -1e-6, 1e-6), dfdt)
+        if grad_on and idx.numel() > CORRECTION_CHUNK:
+            f_at = torch.utils.checkpoint.checkpoint(field_fn, x,
+                                                     use_reentrant=False)
+        else:
+            f_at = field_fn(x)
+        corr.append(torch.clamp(f_at / dfdt, -cap, cap))
+    return t0.index_put((idx,), t0[idx] - torch.cat(corr))
 
 
 def trace(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
           params: TraceParams = TraceParams()):
-    """March rays to the iso surface: ro, rd [N, 3] -> (t_hit [N], hit [N])."""
+    """March rays to the iso surface: ro, rd [N, 3] -> (t_hit [N], hit [N]),
+    t_hit differentiable in the scene's parameters by implicit
+    differentiation at the root (the march itself is not differentiated)."""
     iso = params.iso
     lo = scene.bbox_lo - 0.05
     hi = scene.bbox_hi + 0.05
@@ -191,11 +223,9 @@ def trace(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
     def eval_f(t):
         return field(scene, ro + t[:, None] * rd) - iso
 
-    t_root, found = march_all(eval_f, step_size, t_enter, t_exit, alive0,
-                              params)
-
-    def f_and_grad(x):
-        return field(scene, x) - iso, gradient(scene, x)
-
-    t_hit = newton_nudge(f_and_grad, ro, rd, t_root, found, 0.5 * base_step)
+    with torch.no_grad():
+        t_root, found = march_all(eval_f, step_size, t_enter, t_exit,
+                                  alive0, params)
+    t_hit = newton_nudge(lambda x: field(scene, x) - iso, ro, rd, t_root,
+                         found, 0.5 * base_step)
     return t_hit, found

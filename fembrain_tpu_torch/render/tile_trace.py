@@ -1,24 +1,31 @@
-"""Tile sphere tracer for additive scenes: host-side layout, the CUDA
-kernel wrapper, and the kernel's plain PyTorch versions.
+"""Tile sphere tracer: host-side layout, the CUDA kernel wrappers, the
+kernels' plain PyTorch versions, and the differentiable `trace_fast`.
 
-PyTorch counterpart of fembrain_tpu/render/pallas_trace.py (the additive
-branch of `trace_pallas`, `trace_pallas_image` and their helpers). Rays
-are cut into tiles of `tile` rays; each tile sphere-marches the sum of
-Morton-ordered prim blocks of PRIM_BLOCK prims, with whole blocks
-skipped when the tile's ray hull misses a block's support box. Two modes:
+PyTorch counterpart of fembrain_tpu/render/pallas_trace.py (`trace_pallas`,
+`trace_pallas_image`, `trace_fast` and their helpers). Rays are cut into
+tiles of `tile` rays; each tile marches on its own with a tile-wide early
+exit. Two kernels:
 
-* K1, rest: the undeformed field;
-* K2, Wendland: the RBF-deformed field, with every march point pulled
-  back to rest space through a compact-support Wendland interpolant
-  (`WendlandSpec`), centers culled per CEN_BLOCK block, and a per-lane
-  linear rest-point model between refreshes.
+* the additive kernel (csrc/trace_additive.cu) sphere-marches the sum of
+  Morton-ordered prim blocks of PRIM_BLOCK prims, with whole blocks
+  skipped when the tile's ray hull misses a block's support box, in three
+  modes: K1 rest; K2 Wendland-deformed (`WendlandSpec`: every march point
+  pulled back through a compact-support interpolant, centers culled per
+  CEN_BLOCK block, a per-lane linear rest-point model between refreshes);
+  K4 biharmonic-deformed (`BiharmonicSpec`: every eval pulls back from
+  scratch through all centers, global step bounds);
+* K3, the general kernel (csrc/trace_general.cu), marches any BlobTree
+  of at most UNROLL_LIMIT ops: warp chains, the typed prim distances and
+  the op fold along the schedule, fixed steps where the field is not
+  monotone.
 
-On a CUDA tensor `run_tiles` launches the hand-written kernel
-(csrc/trace_additive.cu, built by fembrain_tpu_torch.native); on a CPU
-tensor it runs the plain version (`trace_tiles_plain`,
-`trace_tiles_wendland_plain`), which computes the same march with the
-same tile partition, step rule, iteration and refresh schedule,
-bisection and secant, vectorised over all rays at once.
+On a CUDA tensor `run_tiles` launches the hand-written kernel (built by
+fembrain_tpu_torch.native); on a CPU tensor it runs the plain version
+(`trace_tiles_plain`, `trace_tiles_wendland_plain`,
+`trace_tiles_biharmonic_plain`, `trace_tiles_general_plain`), which
+computes the same march with the same tile partition, step rule,
+iteration and refresh schedule, bisection and secant, vectorised over
+all rays at once.
 """
 from __future__ import annotations
 
@@ -29,19 +36,29 @@ import math
 import numpy as np
 import torch
 
-from ..blob.scene import Scene
+from ..blob.scene import SRC_RANGE, Scene
 from ..blob.types import PrimType
-from ..ops.field import local_coords, point_merge_target, rows_prim_fields
-from .sphere_trace import TraceParams, prim_interval, support_radius_bound
+from ..ops.field import (
+    field, field_rows, local_coords, point_merge_target, rows_prim_fields,
+    supports_rows_fast_path,
+)
+from .sphere_trace import (
+    TraceParams, _ray_box, newton_nudge, prim_interval,
+    support_radius_bound, trace,
+)
 
 TILE = 256        # rays per CTA: one 16x16 pixel block, one ray a thread
 PRIM_BLOCK = 8    # prims per cull block (the pack's Morton block size)
 CEN_BLOCK = 32    # Wendland centers per cull block
 K_REFRESH = 4     # evals per pull-back refresh cycle when a spec gives 0
-PRIM_ROW = 24     # floats per packed prim row: m[3][4] pos dir res type pad
+PRIM_ROW = 24     # floats per packed prim row: m[3][4] pos dir res type aux
+STEP_ROW = 6      # ints per general op step: type dst lkind lidx rkind ridx
+WARP_ROW = 8      # floats per warp wire: type axis_a axis_b pad params[4]
+MAX_REGS = 32     # op-value registers per thread in the general kernel
 
-# Kernel launches made through `run_tiles`, per mode.
-LAUNCHES = {"trace_additive_rest": 0, "trace_additive_wendland": 0}
+# Kernel launches made through `run_tiles`, per kernel and mode.
+LAUNCHES = {"trace_additive_rest": 0, "trace_additive_wendland": 0,
+            "trace_additive_biharmonic": 0, "trace_general": 0}
 
 
 def reset_launch_counts() -> None:
@@ -66,6 +83,20 @@ class WendlandSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class BiharmonicSpec:
+    """Per-frame biharmonic displacement spec for the deformed tile trace
+    (render.deformed.biharmonic_spec builds it): u(x) = sum_j w_j |x - c_j|
+    + a + B x over all M centers."""
+
+    centers: torch.Tensor   # [M, 3]
+    w: torch.Tensor         # [M+4, 3] kernel weights, then a, then B
+    shrink: torch.Tensor    # [] global multiplicative step factor 1 - L
+    slack: torch.Tensor     # [] global subtractive step slack 2 max|u|
+    max_disp: float = 0.5   # static bracket and cull-box inflation
+    fp_iters: int = 2       # pull-back iterations per eval
+
+
+@dataclasses.dataclass(frozen=True)
 class WendlandInputs:
     centers: torch.Tensor   # [Mp, 3]
     w: torch.Tensor         # [Mp, 3]
@@ -77,8 +108,17 @@ class WendlandInputs:
 
 
 @dataclasses.dataclass(frozen=True)
+class BiharmonicInputs:
+    centers: torch.Tensor   # [M, 3]
+    w: torch.Tensor         # [M, 3] kernel weights
+    waff: torch.Tensor      # [3, 4] affine tail (col 0 constant, 1:4 B^T)
+    fp_iters: int
+
+
+@dataclasses.dataclass(frozen=True)
 class TileInputs:
-    """Everything one tile-trace launch reads, laid out for the kernel."""
+    """Everything one additive tile-trace launch reads, laid out for the
+    kernel."""
 
     rays: torch.Tensor       # [9, n] ro xyz, rd xyz, t_enter, t_exit, alive0
     live: torch.Tensor       # [tiles, nb] int32 blocks a tile may evaluate
@@ -94,6 +134,42 @@ class TileInputs:
     max_steps: int
     bisect_steps: int
     wendland: WendlandInputs | None = None
+    biharmonic: BiharmonicInputs | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class GeneralInputs:
+    """Everything one general (K3) tile-trace launch reads."""
+
+    rays: torch.Tensor         # [9, n] as TileInputs.rays
+    prims: torch.Tensor        # [P, PRIM_ROW]; column 23 the warp group
+    steps: torch.Tensor        # [S, STEP_ROW] int32 op fold in schedule order
+    step_params: torch.Tensor  # [S, 2] op params 0:2 (Ricci p, 1/p)
+    warps: torch.Tensor        # [groups * chain_len, WARP_ROW] root-first
+    scene: Scene               # what the plain version evaluates
+    tile: int
+    n_real: int                # real prims (the sum when the root is a prim)
+    n_groups: int
+    chain_len: int
+    n_regs: int
+    root_reg: int
+    root_is_op: bool
+    adaptive: bool             # Wyvill step bound (monotone field) or fixed
+    iso: float
+    r_iso: float
+    base_step: float
+    inv_stretch: float
+    max_steps: int
+    bisect_steps: int
+
+
+def _prim_rows(pm, pos, dirv, res, ptype, aux):
+    """[P, PRIM_ROW] packed rows: m[3][4], pos, dir, res, type, aux."""
+    P = pm.shape[0]
+    return torch.cat(
+        [pm.reshape(P, 12), pos, dirv, res, ptype.to(pos.dtype)[:, None],
+         aux.to(pos.dtype)[:, None]], 1
+    ).contiguous()
 
 
 def _additive_layout(scene: Scene):
@@ -160,10 +236,7 @@ def _additive_layout(scene: Scene):
     res = torch.cat(
         [torch.where(to_cyl[:, None], 0.0, res[:, :2]), res[:, 2:]], 1
     )
-    prims = torch.cat(
-        [pm.reshape(P, 12), pos, dirv, res,
-         eff_type.to(pos.dtype)[:, None], torch.zeros_like(pos[:, :1])], 1
-    ).contiguous()
+    prims = _prim_rows(pm, pos, dirv, res, eff_type, torch.zeros_like(eff_type))
     return prims, blk_lo, blk_hi, blk_stretch, tuple(eff_types)
 
 
@@ -188,31 +261,49 @@ def _hull_box_live(hull_lo, hull_hi, blk_lo, blk_hi):
     return live.to(torch.int32)
 
 
+def _pad_rays(ro, rd, tile):
+    """Pad the rays to whole tiles: padded rays start far away pointing +x
+    and miss everything."""
+    n = ro.shape[0]
+    pad = -(-n // tile) * tile - n
+    if pad:
+        dev = ro.device
+        ro = torch.cat([ro, torch.full((pad, 3), 1e7, device=dev)], 0)
+        far = torch.tensor([[1.0, 0.0, 0.0]], device=dev).expand(pad, 3)
+        rd = torch.cat([rd, far], 0)
+    return ro, rd
+
+
+def _ray_rows(ro, rd, t_enter, t_exit, alive0):
+    return torch.stack(
+        [ro[:, 0], ro[:, 1], ro[:, 2], rd[:, 0], rd[:, 1], rd[:, 2],
+         t_enter, t_exit, alive0.to(ro.dtype)], 0
+    ).contiguous()
+
+
+def is_additive_path(scene: Scene) -> bool:
+    """Whether the additive kernel (K1, K2, K4) takes this scene; every
+    other scene goes through the general kernel (K3)."""
+    return scene.is_additive and scene.capacity_prims % PRIM_BLOCK == 0
+
+
 def prepare_tiles(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
                   params: TraceParams = TraceParams(), tile: int = TILE,
-                  disp: WendlandSpec | None = None) -> TileInputs:
+                  disp: WendlandSpec | BiharmonicSpec | None = None
+                  ) -> TileInputs:
     """Pad the rays to whole tiles, bracket them, and build the per-tile
-    flags and step rows one launch reads (the additive branch of the
-    reference's trace_pallas, lines 845-1014)."""
-    if not (scene.is_additive and scene.capacity_prims % PRIM_BLOCK == 0):
-        raise ValueError(
-            "the tile tracer covers additive scenes only; the general "
-            "BlobTree kernel is not ported"
-        )
+    flags and step rows one additive launch reads (the additive branch of
+    the reference's trace_pallas, lines 845-1029)."""
+    if not is_additive_path(scene):
+        raise ValueError("the additive tile tracer takes additive scenes "
+                         "only; prepare_general takes the others")
     dev = ro.device
     if disp is not None:
         max_disp = disp.max_disp
     else:
         max_disp = torch.zeros((), device=dev)
-    n = ro.shape[0]
-    n_pad = -(-n // tile) * tile
-    pad = n_pad - n
-    if pad:
-        # Padded rays start far away pointing +x and miss everything.
-        ro = torch.cat([ro, torch.full((pad, 3), 1e7, device=dev)], 0)
-        far = torch.tensor([[1.0, 0.0, 0.0]], device=dev).expand(pad, 3)
-        rd = torch.cat([rd, far], 0)
-    tiles = n_pad // tile
+    ro, rd = _pad_rays(ro, rd, tile)
+    tiles = ro.shape[0] // tile
     t_enter, t_exit, alive0 = prim_interval(scene, ro, rd,
                                             margin=0.05 + max_disp)
 
@@ -227,8 +318,11 @@ def prepare_tiles(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
                           blk_hi + max_disp)
     tile_stretch = torch.amax(torch.where(live > 0, blk_stretch[None], 0.0), -1)
     tile_inv = 1.0 / torch.clamp(tile_stretch, min=1e-6)
-    wend = None
-    if disp is not None:
+    wend = bih = None
+    shrink_t = torch.ones_like(tile_inv)
+    slack_t = torch.zeros_like(tile_inv)
+    ldrift_t = torch.zeros_like(tile_inv)
+    if isinstance(disp, WendlandSpec):
         # Per-tile deformed march bounds from the compact support: only
         # center blocks whose sigma box touches the tile's inflated
         # segment hull contribute; L and max|u| come from their sampled
@@ -262,10 +356,20 @@ def prepare_tiles(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
             inv_sigma=float(np.float32(1.0 / disp.sigma)),
             k_refresh=int(disp.k_refresh) or K_REFRESH,
         )
-    else:
-        shrink_t = torch.ones_like(tile_inv)
-        slack_t = torch.zeros_like(tile_inv)
-        ldrift_t = torch.zeros_like(tile_inv)
+    elif isinstance(disp, BiharmonicSpec):
+        # Global (shrink, slack) on every tile; the hull cull tests the
+        # pulled-back rest points against the exact rest boxes.
+        m = disp.centers.shape[0]
+        shrink_t = torch.broadcast_to(disp.shrink, tile_inv.shape)
+        slack_t = torch.broadcast_to(disp.slack, tile_inv.shape)
+        bih = BiharmonicInputs(
+            centers=disp.centers.contiguous(),
+            w=disp.w[:m].contiguous(),
+            waff=disp.w[m:].T.contiguous(),
+            fp_iters=int(disp.fp_iters),
+        )
+    elif disp is not None:
+        raise TypeError(f"unknown displacement spec {type(disp).__name__}")
     tile_rows = torch.stack([tile_inv, shrink_t, slack_t, ldrift_t], -1)
 
     # Scenes with few real blocks evaluate every real block (the cull's
@@ -274,12 +378,8 @@ def prepare_tiles(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
     real = torch.tensor([bool(t) for t in eff_types], device=dev)
     dyn_cull = int(real.sum()) > 4
     live = (live.bool() & real[None]) if dyn_cull else real[None].expand_as(live)
-    rays = torch.stack(
-        [ro[:, 0], ro[:, 1], ro[:, 2], rd[:, 0], rd[:, 1], rd[:, 2],
-         t_enter, t_exit, alive0.to(ro.dtype)], 0
-    )
     return TileInputs(
-        rays=rays.contiguous(),
+        rays=_ray_rows(ro, rd, t_enter, t_exit, alive0),
         live=live.to(torch.int32).contiguous(),
         boxes=torch.cat([blk_lo, blk_hi], -1).contiguous(),
         tile_rows=tile_rows.contiguous(),
@@ -293,10 +393,88 @@ def prepare_tiles(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
         max_steps=int(params.max_steps),
         bisect_steps=int(params.bisect_steps),
         wendland=wend,
+        biharmonic=bih,
     )
 
 
-# ------------------------------------------------------------ the kernel
+def prepare_general(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
+                    params: TraceParams = TraceParams(),
+                    tile: int = TILE) -> GeneralInputs:
+    """Pad and bracket the rays and lay the scene out for one general
+    (K3) launch (the general branch of the reference's trace_pallas): the
+    bracket is `prim_interval` where the prim support boxes bound the
+    field, else the scene slab with margin 0.05, zeroed on dead rays."""
+    if not supports_rows_fast_path(scene):
+        raise NotImplementedError(
+            f"scan fold for {len(scene.schedule)} ops is not ported")
+    dev = ro.device
+    ro, rd = _pad_rays(ro, rd, tile)
+    lo = scene.bbox_lo - 0.05
+    hi = scene.bbox_hi + 0.05
+    if scene.can_cull:
+        t_enter, t_exit, alive0 = prim_interval(scene, ro, rd, margin=0.05)
+    else:
+        t_enter, t_exit = _ray_box(ro, rd, lo[None], hi[None])
+        alive0 = t_exit > t_enter
+        t_enter = torch.where(alive0, t_enter, 0.0)
+        t_exit = torch.where(alive0, t_exit, 0.0)
+
+    # The op fold as register steps in schedule order (the scene's fold
+    # plan); a range step carries its prim span instead of a range slot.
+    steps = []
+    for op_idx, otype, dst, lk, li, rk, ri in scene.fold_plan:
+        if lk == SRC_RANGE:
+            w = scene.wiring[op_idx]
+            li, ri = w.left, w.right
+        steps.append((otype, dst, lk, li, rk, ri))
+    if not steps:
+        steps = [(0, 0, 0, 0, 0, 0)]
+    sched = [p[0] for p in scene.fold_plan] or [0]
+    step_params = scene.op_params[torch.tensor(sched, device=dev)][:, :2]
+
+    # Warp chains per group, root-first, with their op's parameters.
+    P = scene.capacity_prims
+    group = torch.zeros(P, dtype=torch.int64, device=dev)
+    chain_len = max(1, max(len(c) for c, _ in scene.warp_groups))
+    warps = torch.zeros((len(scene.warp_groups) * chain_len, WARP_ROW),
+                        device=dev)
+    warps[:, 0] = -1.0
+    for g, (chain, prim_idx) in enumerate(scene.warp_groups):
+        if prim_idx:
+            group[list(prim_idx)] = g
+        for j, wire in enumerate(chain):
+            row = g * chain_len + j
+            warps[row, :3] = torch.tensor(
+                [wire.wtype, wire.axis_a, wire.axis_b], dtype=torch.float32)
+            warps[row, 4:] = scene.op_params[wire.op_idx]
+    prims = _prim_rows(scene.prim_mtx, scene.prim_pos, scene.prim_dir,
+                       scene.prim_res, scene.prim_type, group)
+    base_step = torch.sqrt(torch.sum((hi - lo) ** 2)) * params.step_frac
+    return GeneralInputs(
+        rays=_ray_rows(ro, rd, t_enter, t_exit, alive0),
+        prims=prims,
+        steps=torch.tensor(steps, dtype=torch.int32, device=dev),
+        step_params=step_params.float().contiguous(),
+        warps=warps.contiguous(),
+        scene=scene,
+        tile=tile,
+        n_real=scene.n_prims,
+        n_groups=len(scene.warp_groups),
+        chain_len=chain_len,
+        n_regs=scene.fold_registers,
+        root_reg=scene.root_reg,
+        root_is_op=bool(scene.root_is_op),
+        adaptive=bool(scene.monotone_field),
+        iso=float(params.iso),
+        r_iso=params.r_iso,
+        base_step=float(base_step),
+        inv_stretch=1.0 / max(scene.max_world_to_local_scale, 1e-6),
+        max_steps=int(params.max_steps),
+        bisect_steps=int(params.bisect_steps),
+    )
+
+
+# ----------------------------------------------------------- the kernels
 
 _F32 = ctypes.c_float
 _I32 = ctypes.c_int
@@ -315,12 +493,23 @@ def _check(name, t, dtype, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_tiling(n, tile):
+    if tile % 32 or not 32 <= tile <= 1024 or n % tile:
+        raise ValueError(f"tile {tile} must be a multiple of 32 in "
+                         f"[32, 1024] dividing {n} rays")
+
+
+def _ptr(t):
+    return _PTR(t.data_ptr())
+
+
 def trace_additive_cuda(inp: TileInputs):
-    """Launch the CUDA tile-trace kernel (K1 rest or K2 Wendland) on the
-    current stream: (t [n], hit [n]) with hit 0/1 as float.
+    """Launch the CUDA additive tile-trace kernel (K1 rest, K2 Wendland or
+    K4 biharmonic) on the current stream: (t [n], hit [n]) with hit 0/1 as
+    float.
 
     Replaces the Pallas TPU kernel fembrain_tpu/render/pallas_trace.py
-    `_trace_kernel_additive` (rest mode and Wendland mode)."""
+    `_trace_kernel_additive` (rest, Wendland and biharmonic modes)."""
     from .. import native
 
     n = inp.rays.shape[1]
@@ -328,15 +517,15 @@ def trace_additive_cuda(inp: TileInputs):
     nb = inp.boxes.shape[0]
     P = inp.prims.shape[0]
     f32, i32 = torch.float32, torch.int32
-    if inp.tile % 32 or not 32 <= inp.tile <= 1024 or n % inp.tile:
-        raise ValueError(f"tile {inp.tile} must be a multiple of 32 in "
-                         f"[32, 1024] dividing {n} rays")
+    _check_tiling(n, inp.tile)
     _check("rays", inp.rays, f32, (9, n))
     _check("live", inp.live, i32, (tiles, nb))
     _check("boxes", inp.boxes, f32, (nb, 6))
     _check("tile_rows", inp.tile_rows, f32, (tiles, 4))
     _check("prims", inp.prims, f32, (nb * PRIM_BLOCK, PRIM_ROW))
-    w = inp.wendland
+    w, b = inp.wendland, inp.biharmonic
+    if w is not None and b is not None:
+        raise ValueError("one displacement mode per launch")
     if w is not None:
         mp = w.centers.shape[0]
         n_cb = mp // CEN_BLOCK
@@ -345,52 +534,154 @@ def trace_additive_cuda(inp: TileInputs):
         _check("waff", w.waff, f32, (3, 4))
         _check("cboxes", w.cboxes, f32, (n_cb, 6))
         _check("clive", w.clive, i32, (tiles, n_cb))
+    if b is not None:
+        m = b.centers.shape[0]
+        _check("centers", b.centers, f32, (m, 3))
+        _check("weights", b.w, f32, (m, 3))
+        _check("waff", b.waff, f32, (3, 4))
     lib = native.load()
     t_out = torch.empty(n, device=inp.rays.device, dtype=f32)
     hit_out = torch.empty_like(t_out)
     stream = torch.cuda.current_stream(inp.rays.device).cuda_stream
     common = (
-        _PTR(inp.rays.data_ptr()), _PTR(inp.live.data_ptr()),
-        _PTR(inp.boxes.data_ptr()), _PTR(inp.tile_rows.data_ptr()),
-        _PTR(inp.prims.data_ptr()),
-        _PTR(t_out.data_ptr()), _PTR(hit_out.data_ptr()),
+        _ptr(inp.rays), _ptr(inp.live), _ptr(inp.boxes), _ptr(inp.tile_rows),
+        _ptr(inp.prims), _ptr(t_out), _ptr(hit_out),
         _I32(n), _I32(inp.tile), _I32(P), _I32(nb), _I32(int(inp.dyn_cull)),
         _F32(inp.iso), _F32(inp.r_iso), _F32(inp.base_step),
         _I32(inp.max_steps), _I32(inp.bisect_steps),
     )
-    if w is None:
-        rc = lib.fb_trace_additive_rest(*common, _PTR(stream))
-        name = "trace_additive_rest"
-    else:
+    if w is not None:
         rc = lib.fb_trace_additive_wendland(
-            *common,
-            _PTR(w.centers.data_ptr()), _PTR(w.w.data_ptr()),
-            _PTR(w.waff.data_ptr()), _PTR(w.cboxes.data_ptr()),
-            _PTR(w.clive.data_ptr()),
+            *common, _ptr(w.centers), _ptr(w.w), _ptr(w.waff),
+            _ptr(w.cboxes), _ptr(w.clive),
             _I32(n_cb), _I32(CEN_BLOCK), _F32(w.inv_sigma), _I32(w.k_refresh),
             _PTR(stream),
         )
         name = "trace_additive_wendland"
+    elif b is not None:
+        rc = lib.fb_trace_additive_biharmonic(
+            *common, _ptr(b.centers), _ptr(b.w), _ptr(b.waff),
+            _I32(m), _I32(b.fp_iters), _PTR(stream),
+        )
+        name = "trace_additive_biharmonic"
+    else:
+        rc = lib.fb_trace_additive_rest(*common, _PTR(stream))
+        name = "trace_additive_rest"
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: {native.error_string(rc)}")
     LAUNCHES[name] += 1
     return t_out, hit_out
 
 
+def trace_general_cuda(inp: GeneralInputs):
+    """Launch the CUDA general tile-trace kernel (K3) on the current
+    stream: (t [n], hit [n]) with hit 0/1 as float.
+
+    Replaces the Pallas TPU kernel fembrain_tpu/render/pallas_trace.py
+    `_trace_kernel` with fembrain_tpu/ops/field.py `field_rows`."""
+    from .. import native
+
+    n = inp.rays.shape[1]
+    P = inp.prims.shape[0]
+    S = inp.steps.shape[0]
+    f32 = torch.float32
+    _check_tiling(n, inp.tile)
+    _check("rays", inp.rays, f32, (9, n))
+    _check("prims", inp.prims, f32, (P, PRIM_ROW))
+    _check("steps", inp.steps, torch.int32, (S, STEP_ROW))
+    _check("step_params", inp.step_params, f32, (S, 2))
+    _check("warps", inp.warps, f32, (inp.n_groups * inp.chain_len, WARP_ROW))
+    if inp.n_regs > MAX_REGS:
+        raise ValueError(f"the fold needs {inp.n_regs} registers, the kernel "
+                         f"has {MAX_REGS}")
+    lib = native.load()
+    t_out = torch.empty(n, device=inp.rays.device, dtype=f32)
+    hit_out = torch.empty_like(t_out)
+    stream = torch.cuda.current_stream(inp.rays.device).cuda_stream
+    rc = lib.fb_trace_general(
+        _ptr(inp.rays), _ptr(inp.prims), _ptr(inp.steps),
+        _ptr(inp.step_params), _ptr(inp.warps), _ptr(t_out), _ptr(hit_out),
+        _I32(n), _I32(inp.tile), _I32(P), _I32(inp.n_real), _I32(S),
+        _I32(inp.n_groups), _I32(inp.chain_len), _I32(int(inp.root_is_op)),
+        _I32(inp.root_reg), _I32(int(inp.adaptive)),
+        _F32(inp.iso), _F32(inp.r_iso), _F32(inp.base_step),
+        _F32(inp.inv_stretch), _I32(inp.max_steps), _I32(inp.bisect_steps),
+        _PTR(stream),
+    )
+    if rc != 0:
+        raise RuntimeError(f"trace_general launch failed: "
+                           f"{native.error_string(rc)}")
+    LAUNCHES["trace_general"] += 1
+    return t_out, hit_out
+
+
 # ---------------------------------------------------- the plain versions
 
-def _march_plain(inp: TileInputs):
-    """The tile march in plain torch, all rays at once. Blocks are masked
-    by the static tile flags only: the per-eval hull cull is exact for
-    the lanes whose values are used (compact support), so it is left
-    out. A tile's loop state advances only while the tile itself would
-    still be looping, as in the kernel."""
-    rox, roy, roz, rdx, rdy, rdz, t_enter, t_exit, alive0f = inp.rays
+def _march_rows(rays, tile, max_steps, bisect_steps, eval_c, carry, step_dt,
+                subs):
+    """The tile march in plain torch, all rays at once: a tile's loop state
+    advances only while the tile itself would still be looping, as in the
+    kernels. eval_c(t, carry, refresh, upd) -> (field - iso, carry);
+    step_dt(f, t, carry) -> the step; `subs` lists each loop iteration's
+    sub-steps by their refresh flag (`it` counts sub-steps, the loop test
+    runs once per iteration). Returns (t, hit as float)."""
+    rox, roy, roz, rdx, rdy, rdz, t_enter, t_exit, alive0f = rays
     n = rox.shape[0]
-    tiles = n // inp.tile
-    dev = rox.device
+    tiles = n // tile
     alive0 = alive0f > 0.0
-    tile_of = torch.arange(n, device=dev) // inp.tile
+    tile_of = torch.arange(n, device=rox.device) // tile
+    everyone = torch.ones_like(alive0)
+    f0, carry = eval_c(t_enter, carry, True, everyone)
+    t, f, t_prev, f_prev = t_enter, f0, t_enter, f0
+    found = alive0 & (f0 >= 0.0)
+    alive = alive0 & (f0 < 0.0)
+    it = torch.zeros(tiles, dtype=torch.int64, device=rox.device)
+
+    def tile_any(mask):
+        return mask.reshape(tiles, -1).any(-1)
+
+    running = (it < max_steps) & tile_any(alive)
+    while bool(running.any()):
+        run = running[tile_of]
+        for refresh in subs:
+            t_new = torch.minimum(t + step_dt(f, t, carry), t_exit)
+            f_new, carry = eval_c(t_new, carry, refresh, run)
+            m = alive & run
+            crossed = m & (f_new >= 0.0)
+            done = m & (t_new >= t_exit) & (f_new < 0.0)
+            t_prev = torch.where(m, t, t_prev)
+            f_prev = torch.where(m, f, f_prev)
+            t = torch.where(m, t_new, t)
+            f = torch.where(m, f_new, f)
+            found = found | crossed
+            alive = alive & ~crossed & ~done
+        it = it + len(subs) * running
+        running = running & (it < max_steps) & tile_any(alive)
+
+    # Refinement: bisection (in K2 the first halving refreshes the
+    # pull-back and the rest ride the refreshed linear model), then a
+    # secant on the bracket.
+    a, b, fa, fb = t_prev, t, f_prev, f
+    for i in range(bisect_steps):
+        mid = 0.5 * (a + b)
+        fm, carry = eval_c(mid, carry, i == 0, everyone)
+        neg = fm < 0.0
+        a, b = torch.where(neg, mid, a), torch.where(neg, b, mid)
+        fa, fb = torch.where(neg, fm, fa), torch.where(neg, fb, fm)
+    denom = fb - fa
+    t_sec = a - fa * (b - a) / torch.where(torch.abs(denom) < 1e-12, 1e-12,
+                                           denom)
+    t_root = torch.where(torch.abs(denom) < 1e-9, 0.5 * (a + b), t_sec)
+    return torch.where(found, t_root, t_exit), found.to(torch.float32)
+
+
+def _march_plain(inp: TileInputs):
+    """The additive march (K1, K2, K4). Blocks are masked by the static
+    tile flags only: the per-eval hull cull is exact for the lanes whose
+    values are used (compact support), so it is left out."""
+    rox, roy, roz, rdx, rdy, rdz, t_enter = inp.rays[:7]
+    n = rox.shape[0]
+    tile_of = torch.arange(n, device=rox.device) // inp.tile
     live = inp.live[tile_of] > 0                       # [n, nb]
     inv_stretch, shrink, slack, ldrift = inp.tile_rows[tile_of].unbind(-1)
     iso = inp.iso
@@ -415,7 +706,10 @@ def _march_plain(inp: TileInputs):
             f = f + torch.where(live[:, b], pf.sum(-1), 0.0)
         return f - iso
 
-    w = inp.wendland
+    def point(t):
+        return rox + t * rdx, roy + t * rdy, roz + t * rdz
+
+    w, bh = inp.wendland, inp.biharmonic
     if w is not None:
         clive = w.clive[tile_of] > 0                   # [n, n_cb]
         n_cb = w.centers.shape[0] // CEN_BLOCK
@@ -440,89 +734,75 @@ def _march_plain(inp: TileInputs):
                     u[i] = u[i] + torch.where(clive[:, cb], s, 0.0)
             return px - u[0], py - u[1], pz - u[2]
 
-    def eval_c(t, carry, refresh, upd):
-        px, py, pz = rox + t * rdx, roy + t * rdy, roz + t * rdz
-        if w is None:
-            return field_rest(px, py, pz), carry
-        if refresh:
-            xr, yr, zr, vx, vy, vz, tr = carry
-            adv = t - tr
-            x2, y2, z2 = pull(xr + adv * vx, yr + adv * vy, zr + adv * vz,
-                              px, py, pz)
-            big = adv > 1e-5
-            inv = 1.0 / torch.where(big, adv, 1.0)
-            new = (x2, y2, z2,
-                   torch.where(big, (x2 - xr) * inv, vx),
-                   torch.where(big, (y2 - yr) * inv, vy),
-                   torch.where(big, (z2 - zr) * inv, vz), t)
-            carry = tuple(torch.where(upd, a, b) for a, b in zip(new, carry))
-        a2 = t - carry[6]
-        return field_rest(carry[0] + a2 * carry[3], carry[1] + a2 * carry[4],
-                          carry[2] + a2 * carry[5]), carry
+        def eval_c(t, carry, refresh, upd):
+            px, py, pz = point(t)
+            if refresh:
+                xr, yr, zr, vx, vy, vz, tr = carry
+                adv = t - tr
+                x2, y2, z2 = pull(xr + adv * vx, yr + adv * vy,
+                                  zr + adv * vz, px, py, pz)
+                big = adv > 1e-5
+                inv = 1.0 / torch.where(big, adv, 1.0)
+                new = (x2, y2, z2,
+                       torch.where(big, (x2 - xr) * inv, vx),
+                       torch.where(big, (y2 - yr) * inv, vy),
+                       torch.where(big, (z2 - zr) * inv, vz), t)
+                carry = tuple(torch.where(upd, a, b)
+                              for a, b in zip(new, carry))
+            a2 = t - carry[6]
+            return field_rest(carry[0] + a2 * carry[3],
+                              carry[1] + a2 * carry[4],
+                              carry[2] + a2 * carry[5]), carry
 
-    carry = (rox + t_enter * rdx, roy + t_enter * rdy, roz + t_enter * rdz,
-             rdx, rdy, rdz, t_enter)
-    everyone = torch.ones_like(alive0)
-    f0, carry = eval_c(t_enter, carry, True, everyone)
-    t, f, t_prev, f_prev = t_enter, f0, t_enter, f0
-    found = alive0 & (f0 >= 0.0)
-    alive = alive0 & (f0 < 0.0)
-    # K1 takes two sub-steps per loop iteration; K2 one refresh and then
-    # k_refresh - 1 model evals. `it` counts sub-steps, the loop test runs
-    # once per iteration.
-    subs = [False, False] if w is None else [True] + [False] * (w.k_refresh - 1)
-    it = torch.zeros(tiles, dtype=torch.int64, device=dev)
+        def step_dt(f, t, carry):
+            # The model's staleness 2 L |t - t_r| comes off d before both
+            # deformed-space bounds.
+            d = (support_radius_bound(f + iso) - inp.r_iso) * inv_stretch
+            de = d - 2.0 * ldrift * torch.abs(t - carry[6])
+            d = torch.maximum(shrink * de, de - slack)
+            return torch.clamp(0.95 * d, min=inp.base_step)
 
-    def tile_any(mask):
-        return mask.reshape(tiles, -1).any(-1)
+        carry = (*point(t_enter), rdx, rdy, rdz, t_enter)
+        subs = [True] + [False] * (w.k_refresh - 1)
+    else:
+        if bh is not None:
+            wa = bh.waff
 
-    running = (it < inp.max_steps) & tile_any(alive)
-    while bool(running.any()):
-        run = running[tile_of]
-        for refresh in subs:
-            r = support_radius_bound(f + iso)
-            d = (r - inp.r_iso) * inv_stretch
-            if w is not None:
-                eps = 2.0 * ldrift * torch.abs(t - carry[6])
-                de = d - eps
-                d = torch.maximum(shrink * de, de - slack)
-            else:
-                d = torch.maximum(shrink * d, d - slack)
-            dt = torch.clamp(0.95 * d, min=inp.base_step)
-            t_new = torch.minimum(t + dt, t_exit)
-            f_new, carry = eval_c(t_new, carry, refresh, run)
-            m = alive & run
-            crossed = m & (f_new >= 0.0)
-            done = m & (t_new >= t_exit) & (f_new < 0.0)
-            t_prev = torch.where(m, t, t_prev)
-            f_prev = torch.where(m, f, f_prev)
-            t = torch.where(m, t_new, t)
-            f = torch.where(m, f_new, f)
-            found = found | crossed
-            alive = alive & ~crossed & ~done
-        it = it + len(subs) * running
-        running = running & (it < inp.max_steps) & tile_any(alive)
+            def pull_back(px, py, pz):
+                xx, yy, zz = px, py, pz
+                for _ in range(bh.fp_iters):
+                    dx = xx[:, None] - bh.centers[None, :, 0]
+                    dy = yy[:, None] - bh.centers[None, :, 1]
+                    dz = zz[:, None] - bh.centers[None, :, 2]
+                    d = torch.sqrt(torch.clamp(dx * dx + dy * dy + dz * dz,
+                                               min=1e-24))
+                    u = [wa[i, 0] + wa[i, 1] * xx + wa[i, 2] * yy
+                         + wa[i, 3] * zz + torch.sum(d * bh.w[None, :, i], -1)
+                         for i in range(3)]
+                    xx, yy, zz = px - u[0], py - u[1], pz - u[2]
+                return xx, yy, zz
 
-    # Refinement: the first halving refreshes the pull-back, the rest
-    # ride the refreshed linear model; then a secant on the bracket.
-    a, b, fa, fb = t_prev, t, f_prev, f
-    for i in range(inp.bisect_steps):
-        mid = 0.5 * (a + b)
-        fm, carry = eval_c(mid, carry, i == 0, everyone)
-        neg = fm < 0.0
-        a, b = torch.where(neg, mid, a), torch.where(neg, b, mid)
-        fa, fb = torch.where(neg, fm, fa), torch.where(neg, fb, fm)
-    denom = fb - fa
-    t_sec = a - fa * (b - a) / torch.where(torch.abs(denom) < 1e-12, 1e-12,
-                                           denom)
-    t_root = torch.where(torch.abs(denom) < 1e-9, 0.5 * (a + b), t_sec)
-    return torch.where(found, t_root, t_exit), found.to(torch.float32)
+            def eval_c(t, carry, refresh, upd):
+                return field_rest(*pull_back(*point(t))), carry
+        else:
+            def eval_c(t, carry, refresh, upd):
+                return field_rest(*point(t)), carry
+
+        def step_dt(f, t, carry):
+            d = (support_radius_bound(f + iso) - inp.r_iso) * inv_stretch
+            d = torch.maximum(shrink * d, d - slack)
+            return torch.clamp(0.95 * d, min=inp.base_step)
+
+        carry = ()
+        subs = [False, False]
+    return _march_rows(inp.rays, inp.tile, inp.max_steps, inp.bisect_steps,
+                       eval_c, carry, step_dt, subs)
 
 
 def trace_tiles_plain(inp: TileInputs):
     """Plain version of K1 (the rest tile trace): (t [n], hit [n])."""
-    if inp.wendland is not None:
-        raise ValueError("K1 takes no Wendland inputs")
+    if inp.wendland is not None or inp.biharmonic is not None:
+        raise ValueError("K1 takes no displacement inputs")
     return _march_plain(inp)
 
 
@@ -533,25 +813,85 @@ def trace_tiles_wendland_plain(inp: TileInputs):
     return _march_plain(inp)
 
 
-def run_tiles(inp: TileInputs):
+def trace_tiles_biharmonic_plain(inp: TileInputs):
+    """Plain version of K4 (the biharmonic-deformed tile trace)."""
+    if inp.biharmonic is None:
+        raise ValueError("K4 needs biharmonic inputs")
+    return _march_plain(inp)
+
+
+def trace_tiles_general_plain(inp: GeneralInputs):
+    """Plain version of K3 (the general tile trace): the same march on
+    ops.field.field_rows, two sub-steps per iteration, the Wyvill step
+    bound where the field is monotone and fixed steps elsewhere."""
+    rox, roy, roz, rdx, rdy, rdz = inp.rays[:6]
+
+    def eval_c(t, carry, refresh, upd):
+        return field_rows(inp.scene, rox + t * rdx, roy + t * rdy,
+                          roz + t * rdz) - inp.iso, carry
+
+    def step_dt(f, t, carry):
+        if not inp.adaptive:
+            return inp.base_step
+        d = (support_radius_bound(f + inp.iso) - inp.r_iso) * inp.inv_stretch
+        return torch.clamp(0.95 * d, min=inp.base_step)
+
+    return _march_rows(inp.rays, inp.tile, inp.max_steps, inp.bisect_steps,
+                       eval_c, (), step_dt, [False, False])
+
+
+def run_tiles(inp: TileInputs | GeneralInputs):
     """The kernel on a CUDA tensor, its plain version on a CPU tensor."""
+    general = isinstance(inp, GeneralInputs)
     if inp.rays.is_cuda:
-        return trace_additive_cuda(inp)
+        return trace_general_cuda(inp) if general else trace_additive_cuda(inp)
     if inp.rays.device.type != "cpu":
         raise ValueError(f"no tile tracer for device {inp.rays.device}")
-    if inp.wendland is None:
-        return trace_tiles_plain(inp)
-    return trace_tiles_wendland_plain(inp)
+    if general:
+        return trace_tiles_general_plain(inp)
+    if inp.wendland is not None:
+        return trace_tiles_wendland_plain(inp)
+    if inp.biharmonic is not None:
+        return trace_tiles_biharmonic_plain(inp)
+    return trace_tiles_plain(inp)
 
 
 def trace_tiles(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
                 params: TraceParams = TraceParams(), tile: int = TILE,
-                disp: WendlandSpec | None = None):
+                disp: WendlandSpec | BiharmonicSpec | None = None):
     """Forward tile trace (raw hit parameters): ro, rd [N, 3] ->
-    (t [N], hit [N] bool), t = t_exit on a miss."""
+    (t [N], hit [N] bool), t = t_exit on a miss. Additive scenes take the
+    additive kernel (deformed with `disp`), all others the general one."""
     n = ro.shape[0]
-    t, hit = run_tiles(prepare_tiles(scene, ro, rd, params, tile, disp))
+    if is_additive_path(scene):
+        inp = prepare_tiles(scene, ro, rd, params, tile, disp)
+    elif disp is not None:
+        raise ValueError("the deformed tile trace needs an additive scene")
+    else:
+        inp = prepare_general(scene, ro, rd, params, tile)
+    t, hit = run_tiles(inp)
     return t[:n], hit[:n] > 0.5
+
+
+def trace_fast(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
+               params: TraceParams = TraceParams(), tile: int = TILE):
+    """Tile-kernel forward march plus the implicit-differentiation
+    correction: the output and gradients of sphere_trace.trace, at kernel
+    speed (fembrain_tpu/render/pallas_trace.py `trace_fast`). The kernel
+    (K1 on additive scenes, K3 on the others) runs on detached inputs, so
+    its roots are constants; t = t0 - clamp(f_at / dfdt) carries the
+    derivative through f_at = field(scene, x0) - iso, with the clamp at
+    half a base step of the scene box. Scenes beyond the unrolled fold
+    take sphere_trace.trace."""
+    if not supports_rows_fast_path(scene):
+        return trace(scene, ro, rd, params)
+    with torch.no_grad():
+        t_root, found = trace_tiles(scene, ro, rd, params, tile)
+    diag = torch.sqrt(torch.sum((scene.bbox_hi - scene.bbox_lo + 0.1) ** 2))
+    cap = 0.5 * diag * params.step_frac
+    t_hit = newton_nudge(lambda p: field(scene, p) - params.iso, ro, rd,
+                         t_root, found, cap)
+    return t_hit, found
 
 
 def _block_layout(height: int, width: int, tile: int):
@@ -576,9 +916,11 @@ def _block_layout(height: int, width: int, tile: int):
     return to_blocks, from_blocks, (ph, pw), hb * wb * bh * bw
 
 
-def _image_rays_to_blocks(ro, rd, height, width, tile):
-    """Permute row-major image rays into coherent pixel blocks; padded
-    rays start far away pointing +x and miss everything."""
+def image_rays_to_blocks(ro, rd, height, width, tile=TILE):
+    """Permute row-major image rays into coherent pixel blocks of `tile`
+    rays; padded rays start far away pointing +x and miss everything.
+    Returns (ro_b, rd_b, from_blocks), from_blocks mapping a per-ray
+    result back to row-major order."""
     to_blocks, from_blocks, (ph, pw), _ = _block_layout(height, width, tile)
     ro_b = to_blocks(ro, 1e7)
     rd_b = to_blocks(rd, 0.0)
@@ -592,10 +934,10 @@ def _image_rays_to_blocks(ro, rd, height, width, tile):
 def trace_tiles_image(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
                       height: int, width: int,
                       params: TraceParams = TraceParams(), tile: int = TILE,
-                      disp: WendlandSpec | None = None):
+                      disp: WendlandSpec | BiharmonicSpec | None = None):
     """trace_tiles over a row-major H x W ray grid, one pixel block per
     tile, results mapped back to row-major order."""
-    ro_b, rd_b, from_blocks = _image_rays_to_blocks(ro, rd, height, width,
-                                                    tile)
+    ro_b, rd_b, from_blocks = image_rays_to_blocks(ro, rd, height, width,
+                                                   tile)
     t_b, hit_b = trace_tiles(scene, ro_b, rd_b, params, tile, disp)
     return from_blocks(t_b), from_blocks(hit_b)

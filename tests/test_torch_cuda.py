@@ -1,15 +1,15 @@
-"""PyTorch port on a CUDA card: the hand-written tile-trace kernels (K1
-rest, K2 Wendland) against their plain versions on the same inputs, on
-brain.blob (21 prim blocks, per-eval cull on) and on a scene with one
-prim of every type (2 blocks, cull off).
+"""PyTorch port on a CUDA card: the hand-written tile-trace kernels against
+their plain versions on the same inputs. The additive kernel (K1 rest, K2
+Wendland, K4 biharmonic) on brain.blob (21 prim blocks, per-eval cull on)
+and on a scene with one prim of every type (2 blocks, cull off); the
+general kernel (K3) on the brain resection (a DIF, fixed steps) and on a
+twisted blend (a warp chain, slab brackets).
 
 Needs a card; skips without one. It imports only the port, so it runs
 where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
@@ -19,12 +19,18 @@ from fembrain_tpu_torch.blob.reader import load_blob
 from fembrain_tpu_torch.render import tile_trace as tt
 from fembrain_tpu_torch.render.camera import Camera, generate_rays
 from fembrain_tpu_torch.render.deformed import (
-    build_disp_interp, disp_weights_centers, wendland_spec,
+    biharmonic_spec, build_disp_interp, disp_bounds_sampled,
+    disp_weights_centers, wendland_spec,
 )
 
-from test_torch_fixtures import every_type
+from test_torch_fixtures import BRAIN, blend_twist, brain_resection, every_type
 
-BRAIN = Path(__file__).resolve().parent.parent / "data/models/blobtree/brain.blob"
+# Thresholds against the plain version: hit agreement, max |dt| on common
+# hits (and the median for K2, whose linear rest-point model drifts).
+K1_AGREE, K1_MAX = 0.999, 1e-4
+K2_AGREE, K2_MEDIAN, K2_MAX = 0.995, 5e-3, 5e-2
+K3_AGREE, K3_MAX = 0.999, 1e-4
+K4_AGREE, K4_MAX = 0.995, 1e-3
 
 
 @pytest.fixture
@@ -42,40 +48,74 @@ def _scene(name, device):
     return every_type(pscene).pack(device=device), (25.0, 20.0, 2.5)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", ["brain", "every_type"])
-@pytest.mark.parametrize("wendland", [False, True])
-def test_kernel_matches_plain_version(cuda, name, wendland):
-    scene, pose = _scene(name, cuda)
-    ro, rd = generate_rays(Camera.orbit(*pose, device=cuda), 160, 90)
-    ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
-    disp = None
-    if wendland:
-        # A sag u = -0.15 s^2 (s the normalised height), interpolated
-        # through 64 seeded points of the scene's box.
-        lo, hi = scene.bbox_lo.cpu().numpy(), scene.bbox_hi.cpu().numpy()
-        nodes = lo + np.random.default_rng(3).random((400, 3)) * (hi - lo)
-        interp = build_disp_interp(nodes, n_centers=64, sigma_fill=2.5,
-                                   device=cuda)
-        y = interp.centers[:, 1]
-        s = (y - y.min()) / (y.max() - y.min())
-        u_c = torch.zeros_like(interp.centers)
-        u_c[:, 1] = -0.15 * s**2
-        disp = wendland_spec(interp, disp_weights_centers(interp, u_c),
-                             k_refresh=4)
-    inp = tt.prepare_tiles(scene, ro, rd, disp=disp)
-    assert inp.dyn_cull == (name == "brain")
+def _rays(pose, device, w=160, h=90):
+    ro, rd = generate_rays(Camera.orbit(*pose, device=device), w, h)
+    return ro.reshape(-1, 3), rd.reshape(-1, 3)
+
+
+def _sag_interp(scene, device, kernel):
+    """A sag u = -0.15 s^2 (s the normalised height), interpolated
+    through 64 centers among 400 seeded points of the scene's box:
+    (interp, weights, points)."""
+    lo, hi = scene.bbox_lo.cpu().numpy(), scene.bbox_hi.cpu().numpy()
+    nodes = lo + np.random.default_rng(3).random((400, 3)) * (hi - lo)
+    interp = build_disp_interp(nodes, n_centers=64, kernel=kernel,
+                               sigma_fill=2.5, device=device)
+    y = interp.centers[:, 1]
+    s = (y - y.min()) / (y.max() - y.min())
+    u_c = torch.zeros_like(interp.centers)
+    u_c[:, 1] = -0.15 * s**2
+    pts = torch.as_tensor(nodes, dtype=torch.float32, device=device)
+    return interp, disp_weights_centers(interp, u_c), pts
+
+
+def _compare(inp, kname, plain, agree, max_dt, median=None):
     before = dict(tt.LAUNCHES)
     t_k, h_k = tt.run_tiles(inp)
-    plain = tt.trace_tiles_wendland_plain if wendland else tt.trace_tiles_plain
     t_p, h_p = plain(inp)
     torch.cuda.synchronize()
-    kname = "trace_additive_wendland" if wendland else "trace_additive_rest"
     assert tt.LAUNCHES[kname] == before[kname] + 1
     hk, hp = h_k > 0.5, h_p > 0.5
     assert int(hk.sum()) > 100 and bool(torch.isfinite(t_k).all())
-    assert float((hk == hp).float().mean()) > (0.995 if wendland else 0.999)
+    assert float((hk == hp).float().mean()) > agree
     diff = torch.abs(t_k - t_p)[hk & hp]
-    assert float(diff.max()) < (5e-2 if wendland else 1e-4)
-    if wendland:
-        assert float(diff.median()) < 5e-3
+    assert float(diff.max()) < max_dt
+    if median is not None:
+        assert float(diff.median()) < median
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["brain", "every_type"])
+@pytest.mark.parametrize("mode", ["rest", "wendland", "biharmonic"])
+def test_kernel_matches_plain_version(cuda, name, mode):
+    """The additive kernel in each mode."""
+    scene, pose = _scene(name, cuda)
+    ro, rd = _rays(pose, cuda)
+    disp, median = None, None
+    if mode == "wendland":
+        interp, w, _ = _sag_interp(scene, cuda, "wendland")
+        disp = wendland_spec(interp, w, k_refresh=4)
+        plain, agree, max_dt, median = (tt.trace_tiles_wendland_plain,
+                                        K2_AGREE, K2_MAX, K2_MEDIAN)
+    elif mode == "biharmonic":
+        interp, w, pts = _sag_interp(scene, cuda, "biharmonic")
+        disp = biharmonic_spec(interp, w, *disp_bounds_sampled(interp, w, pts))
+        plain, agree, max_dt = tt.trace_tiles_biharmonic_plain, K4_AGREE, K4_MAX
+    else:
+        plain, agree, max_dt = tt.trace_tiles_plain, K1_AGREE, K1_MAX
+    inp = tt.prepare_tiles(scene, ro, rd, disp=disp)
+    assert inp.dyn_cull == (name == "brain")
+    _compare(inp, f"trace_additive_{mode}", plain, agree, max_dt, median)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("make,pose", [
+    (brain_resection, (30.0, 20.0, 8.0)),
+    (blend_twist, (25.0, 20.0, 2.5)),
+])
+def test_general_kernel_matches_plain_version(cuda, make, pose):
+    scene = make(pscene).pack(device=cuda)
+    ro, rd = _rays(pose, cuda)
+    inp = tt.prepare_general(scene, ro, rd)
+    _compare(inp, "trace_general", tt.trace_tiles_general_plain, K3_AGREE,
+             K3_MAX)

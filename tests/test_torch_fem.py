@@ -1,7 +1,5 @@
 """PyTorch port: embedded tet mesh, anchors and the grid FEM against the
 JAX package on the brain scene (cellsize 0.3), on identical inputs."""
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
@@ -22,7 +20,7 @@ from fembrain_tpu_torch.mesh.polygonize import (
 )
 from fembrain_tpu_torch.mesh.samples import bottom_nodes_per_component
 
-BRAIN = Path(__file__).resolve().parent.parent / "data/models/blobtree/brain.blob"
+from test_torch_fixtures import BRAIN
 # FEM state tolerance, relative: |dq| <= FEM_RTOL max|q| and |dqvel| <=
 # FEM_RTOL max(max|qvel|, max|q| / h). The velocity's own maximum is no
 # scale near equilibrium, where it decays towards 0 while its rounding

@@ -2,8 +2,6 @@
 tile trace (K2's plain version) against the JAX package on the brain
 scene under a sag u = -0.15 s^2, and against the port's exact dense
 tracer."""
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
@@ -21,7 +19,8 @@ from fembrain_tpu_torch import convert
 from fembrain_tpu_torch.render import deformed as pd
 from fembrain_tpu_torch.render import tile_trace as tt
 
-BRAIN = Path(__file__).resolve().parent.parent / "data/models/blobtree/brain.blob"
+from test_torch_fixtures import BRAIN
+
 K_REFRESH = 4
 
 
@@ -62,7 +61,8 @@ def setup():
 
 def test_build_disp_interp_matches_jax(setup):
     ref = setup["interp"]
-    got = pd.build_disp_interp(setup["nodes"], n_centers=64, sigma_fill=2.5)
+    got = pd.build_disp_interp(setup["nodes"], n_centers=64,
+                               kernel="wendland", sigma_fill=2.5)
     np.testing.assert_array_equal(got.centers.numpy(), np.asarray(ref.centers))
     np.testing.assert_array_equal(got.center_nodes.numpy(),
                                   np.asarray(ref.center_nodes))
@@ -105,7 +105,7 @@ def test_deformed_trace_matches_pallas(setup):
     t_p, h_p = pd.trace_deformed_rbf_fast(
         setup["ps"], setup["pinterp"], torch.tensor(setup["w"]),
         torch.tensor(setup["ro"]), torch.tensor(setup["rd"]),
-        k_refresh=K_REFRESH,
+        need_grads=False, k_refresh=K_REFRESH,
     )
     _k2_agree(np.asarray(h_j), np.asarray(t_j), h_p.numpy(), t_p.numpy())
 
@@ -117,6 +117,7 @@ def test_deformed_trace_matches_dense_tracer(setup):
     ro, rd = torch.tensor(setup["ro"]), torch.tensor(setup["rd"])
     t_d, h_d = pd.trace_deformed_rbf(ps, pinterp, w, ro, rd)
     t_p, h_p = pd.trace_deformed_rbf_fast(ps, pinterp, w, ro, rd,
+                                          need_grads=False,
                                           k_refresh=K_REFRESH)
     _k2_agree(h_d.numpy(), t_d.numpy(), h_p.numpy(), t_p.numpy())
     # The sag moved the surface: the deformed hits differ from the rest.
