@@ -11,7 +11,12 @@ Phases, each raising on failure:
      480x270 and 1920x1080 (K1 rest trace on brain; K2 Wendland and K4
      biharmonic deformed traces after a 40-step FEM settle; K3 general
      trace on the brain resection, and on a twisted blend at 480x270), and
-     time each at 1920x1080;
+     time each at 1920x1080 beside its bound: the plain version counts the
+     work these inputs need (tile_trace.WorkCount), the bound is the
+     larger of its flops over the H100's fp32 peak and the bytes these
+     rays need (tile_trace.ray_bytes) over its memory rate, and the
+     kernel's counting build gives the share of lanes that were busy; K3
+     is held against its plain version without the per-tile live list;
   4. with the launch counters at 0, run the main path at 1920x1080: load
      and pack brain.blob, extract the tet mesh (cellsize 0.14), build the
      grid FEM and the 256-center Wendland interpolant, settle 40 steps,
@@ -26,6 +31,8 @@ Phases, each raising on failure:
      (first and warm call); (c) that
      E-gradient against central finite differences at a small size
      (cellsize 0.35, 64 centers, 24x18 rays, one step from rest).
+Phases 4 and 5 also count the frames and steps they drive, and each
+kernel's launches per step come from that: launches over steps, held to 1.
 Then one JSON line with the kernels, the card line, and the result line.
 It needs a CUDA card and exits non-zero without one.
 """
@@ -58,6 +65,12 @@ THRESHOLDS = {
     "trace_general": (0.999, 1e-4, None),
     "trace_additive_biharmonic": (0.995, 1e-3, None),
 }
+# Published peaks of the H100 SXM: fp32 outside the tensor cores, HBM3.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+MAX_BOUND_SHARE = 1.05   # a kernel cannot beat its bound; 5% for the clock
+LAUNCHES_PER_STEP = 1    # what every path is held to
+LIBRARY = "none: no single PyTorch call computes a sphere trace"
 KERNELS = (  # name, source, the TPU kernel it replaces
     ("trace_additive_rest", "fembrain_tpu_torch/csrc/trace_additive.cu",
      "fembrain_tpu/render/pallas_trace.py:349"),
@@ -218,14 +231,15 @@ def image_rays(width, height, device, pose=(30.0, 20.0, 8.0)):
     return ro.reshape(-1, 3).contiguous(), rd.reshape(-1, 3).contiguous()
 
 
-def compare(kernel, plain, inp, name, log, label):
+def compare(kernel, plain, inp, name, log, label, count=None):
     """Kernel against its plain version on the same inputs; raises when
-    outside the kernel's thresholds. Returns max |dt| on common hits."""
+    outside the kernel's thresholds. The plain version fills `count` with
+    the work the inputs need. Returns max |dt| on common hits."""
     import torch
 
     agree_min, max_allowed, median_allowed = THRESHOLDS[name]
     t_k, h_k = kernel(inp)
-    t_p, h_p = plain(inp)
+    t_p, h_p = plain(inp, count)
     torch.cuda.synchronize()
     hk, hp = h_k > 0.5, h_p > 0.5
     if not bool(torch.isfinite(t_k).all()):
@@ -242,6 +256,51 @@ def compare(kernel, plain, inp, name, log, label):
     if not ok or int(hk.sum()) == 0:
         raise AssertionError(f"{label}: kernel and plain version disagree")
     return max_d
+
+
+def bound(name, kernel, inp, count, ms, tag, log):
+    """The kernel's lower bound on this card for the work `count` holds,
+    its share of the measured time, and the busy-lane share from the
+    kernel's counting build. Raises when the share is impossible."""
+    import torch
+
+    from fembrain_tpu_torch.render.tile_trace import ray_bytes
+
+    rays = inp.rays.shape[1]
+    alive = int((inp.rays[8] > 0).sum())
+    n_bytes = ray_bytes(inp.rays)
+    flops_ms = count.flops / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms = max(flops_ms, bytes_ms)
+    share = bound_ms / ms
+    lanes = torch.zeros(2, dtype=torch.int64, device=inp.rays.device)
+    kernel(inp, lanes)
+    torch.cuda.synchronize()
+    needed, ran = (int(v) for v in lanes.tolist())
+    log(f"{name} work: {count.lane_evals} needed lane-evals (counting build "
+        f"{needed}, lanes of the warp-evals that ran {ran}, busy share "
+        f"{needed / max(ran, 1):.4f}), {count.prims_in_reach} prims in reach "
+        f"{dict(sorted(count.prim_evals.items()))}, {count.pull_iters} "
+        f"pull-back iterations, centers biharmonic "
+        f"{count.biharmonic_center_evals} Wendland "
+        f"{count.wendland_center_evals}; {count.flops} flops = "
+        f"{flops_ms:.4f} ms at {PEAK_FP32_FLOPS / 1e12:g} TFLOP/s, {rays} "
+        f"rays of which {alive} start alive = {n_bytes} bytes = "
+        f"{bytes_ms:.4f} ms at {PEAK_BYTES_PER_S / 1e12:g} TB/s; "
+        f"bound {bound_ms:.4f} ms, share {share:.4f} {tag}")
+    if not 0.0 < share <= MAX_BOUND_SHARE:
+        raise AssertionError(f"{name}: bound share {share} outside "
+                             f"(0, {MAX_BOUND_SHARE}]")
+    if abs(needed - count.lane_evals) > 0.01 * count.lane_evals:
+        raise AssertionError(f"{name}: the kernel needed {needed} lane-evals, "
+                             f"its plain version {count.lane_evals}")
+    return dict(
+        bound_ms=bound_ms,
+        bound_by="operations" if flops_ms >= bytes_ms else "bytes",
+        bound_share=share, library_ms=None, library=LIBRARY,
+        needed_lane_evals=count.lane_evals,
+        busy_lane_share=needed / max(ran, 1),
+    )
 
 
 def kernel_phase(root, device, params, tag, log):
@@ -284,7 +343,9 @@ def kernel_phase(root, device, params, tag, log):
         "trace_additive_rest": tt.trace_tiles_plain,
         "trace_additive_wendland": tt.trace_tiles_wendland_plain,
         "trace_additive_biharmonic": tt.trace_tiles_biharmonic_plain,
-        "trace_general": tt.trace_tiles_general_plain,
+        # Without the per-tile live list, so that a wrong list shows.
+        "trace_general": lambda inp, count=None: tt.trace_tiles_general_plain(
+            inp, count, use_live=False),
     }
     results = {}
     for name, (width, height), sc, disp, pose in cases:
@@ -297,13 +358,17 @@ def kernel_phase(root, device, params, tag, log):
             inp = tt.prepare_tiles(sc, ro_b, rd_b, params, tile, disp)
             kernel = tt.trace_additive_cuda
         label = f"{name} {width}x{height}" + (" twist" if pose else "")
-        max_d = compare(kernel, plains[name], inp, name, log, label)
-        if (width, height) == (WIDTH, HEIGHT):
-            ms = event_ms(lambda: kernel(inp), 5)
+        full = (width, height) == (WIDTH, HEIGHT)
+        count = tt.WorkCount() if full else None
+        max_d = compare(kernel, plains[name], inp, name, log, label, count)
+        if full:
+            ms = event_ms(lambda: kernel(inp), 10)
             plain_ms, _ = sync_ms(lambda: plains[name](inp))
             log(f"{name} {width}x{height}: kernel {ms:.3f} ms, plain "
                 f"{plain_ms:.3f} ms {tag}")
-            results[name] = dict(max_abs_err=max_d, ms=ms, plain_ms=plain_ms)
+            results[name] = dict(
+                max_abs_err=max_d, ms=ms, plain_ms=plain_ms,
+                **bound(name, kernel, inp, count, ms, tag, log))
         del inp
         torch.cuda.empty_cache()
     return results
@@ -311,7 +376,7 @@ def kernel_phase(root, device, params, tag, log):
 
 def main_path_phase(root, device, params, tag, log):
     """Phase 4: the main path (rest and coupled frames), counted; returns
-    (launches, frame)."""
+    (launches, steps driven per kernel, frame)."""
     import torch
 
     from fembrain_tpu_torch.fem import grid_fem as gfm
@@ -367,8 +432,12 @@ def main_path_phase(root, device, params, tag, log):
     )
     main_s = time.perf_counter() - t_main
     launches = dict(tt.LAUNCHES)
+    # N_FRAMES rest frames; N_FRAMES coupled frames and as many trace
+    # stages of the split.
+    steps = {"trace_additive_rest": N_FRAMES,
+             "trace_additive_wendland": len(cg_iters) + N_FRAMES}
 
-    log(f"launches in the main path: {launches}")
+    log(f"launches in the main path: {launches}, steps {steps}")
     for name in ("trace_additive_rest", "trace_additive_wendland"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched by the main path")
@@ -394,7 +463,7 @@ def main_path_phase(root, device, params, tag, log):
     log(f"coupled split: fem {fem_ms:.3f} ms, rbf {rbf_ms:.3f} ms, "
         f"trace {trace_ms:.3f} ms {tag}")
     log(f"main path total {main_s:.1f} s")
-    return launches, frame
+    return launches, steps, frame
 
 
 def _check_grad(label, g):
@@ -405,8 +474,8 @@ def _check_grad(label, g):
 
 
 def training_phase(root, device, params, frame, tag, log):
-    """Phase 5: the training path at 1920x1080, counted; returns the
-    launches."""
+    """Phase 5: the training path at 1920x1080, counted; returns
+    (launches, steps driven per kernel)."""
     import torch
 
     from fembrain_tpu_torch.render import tile_trace as tt
@@ -429,6 +498,7 @@ def training_phase(root, device, params, frame, tag, log):
     torch.cuda.empty_cache()
 
     tt.reset_launch_counts()
+    steps = {"trace_general": 0, "trace_additive_biharmonic": 0}
     # Each step runs twice: the first call in a process also pays CUDA's
     # lazy loading of the autograd kernels it meets; the second is warm.
     # (a) trace_fast on the brain resection, d loss / d prim_pos.
@@ -437,6 +507,7 @@ def training_phase(root, device, params, frame, tag, log):
         sc = dataclasses.replace(resection, prim_pos=pos)
         fwd_ms, (t, hit) = sync_ms(
             lambda: tt.trace_fast(sc, ro_b, rd_b, params))
+        steps["trace_general"] += 1
         loss = torch.sum(torch.where(hit, t, 0.0))
         bwd_ms, _ = sync_ms(loss.backward)
         _check_grad("trace_fast prim_pos", pos.grad)
@@ -456,6 +527,7 @@ def training_phase(root, device, params, frame, tag, log):
             scene, gf, interp_b, cgi_b, st0, frame["f_ext"], ro, rd,
             E_scale=e_scale, params=params, image_hw=hw, differentiable=True,
             max_disp=max_disp, solve_stats=stats))
+        steps["trace_additive_biharmonic"] += 1
         loss = torch.sum(torch.where(hit, t, 0.0))
         bwd_ms, _ = sync_ms(loss.backward)
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
@@ -476,7 +548,7 @@ def training_phase(root, device, params, frame, tag, log):
             f"{peak_gb:.3f} GiB {tag}")
         del t, hit, loss, st1
     launches = dict(tt.LAUNCHES)
-    log(f"launches in the training path: {launches}")
+    log(f"launches in the training path: {launches}, steps {steps}")
     for name in ("trace_general", "trace_additive_biharmonic"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched by the training "
@@ -517,7 +589,20 @@ def training_phase(root, device, params, frame, tag, log):
     if not rel < FD_MAX_REL:
         raise AssertionError(f"E-gradient relative error {rel} >= "
                              f"{FD_MAX_REL}")
-    return launches
+    return launches, steps
+
+
+def launches_per_step(launches, steps):
+    """Each kernel's launches over the steps its path drove; raises when a
+    path launched its kernel another number of times a step than 1."""
+    out = {}
+    for name, n_steps in steps.items():
+        per = launches[name] / n_steps
+        if per != LAUNCHES_PER_STEP:
+            raise AssertionError(f"{name}: {launches[name]} launches in "
+                                 f"{n_steps} steps")
+        out[name] = int(per)
+    return out
 
 
 def main() -> int:
@@ -561,16 +646,19 @@ def main() -> int:
     results = kernel_phase(root, device, params, tag, log)
     torch.cuda.empty_cache()
     # 4. the main path, counted
-    launches, frame = main_path_phase(root, device, params, tag, log)
+    launches, steps, frame = main_path_phase(root, device, params, tag, log)
     torch.cuda.empty_cache()
     # 5. the training path, counted
-    launches.update({k: v for k, v in training_phase(
-        root, device, params, frame, tag, log).items()
-        if k in ("trace_general", "trace_additive_biharmonic")})
+    launches_t, steps_t = training_phase(root, device, params, frame, tag,
+                                         log)
+    steps.update(steps_t)
+    launches.update({k: launches_t[k] for k in steps_t})
+    per_step = launches_per_step(launches, steps)
 
     kernels = [
         dict(name=name, route="cuda", source=source, replaces=replaces,
-             launches=launches[name], **results[name])
+             launches=launches[name], launches_per_step=per_step[name],
+             **results[name])
         for name, source, replaces in KERNELS
     ]
     print(json.dumps({"kernels": kernels}))

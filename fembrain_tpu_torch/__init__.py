@@ -11,6 +11,13 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 
+def default_device() -> torch.device:
+    """Where a constructor puts its tensors when the caller names no
+    device: the CUDA card. Without a card the first tensor raises; a
+    caller that wants the CPU says `device="cpu"`."""
+    return torch.device("cuda")
+
+
 def _settle_cpu_math() -> None:
     """Call the CPU math kernels the package uses once on one element.
 

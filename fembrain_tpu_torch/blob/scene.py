@@ -27,6 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import default_device
 from .types import MAX_TREE_NODES, ISO_VALUE, OpType, PrimType
 from ..utils.affine import compose_trs, map_affine
 
@@ -372,8 +373,10 @@ class SceneDef:
 
     # ------------------------------------------------------------- packing
     def pack(self, pad_prims: int | None = None, pad_ops: int | None = None,
-             device: torch.device | str = "cpu") -> "Scene":
-        """Pack into the padded, static-shape tensors on `device`."""
+             device: torch.device | str | None = None) -> "Scene":
+        """Pack into the padded, static-shape tensors on `device` (the
+        card when None)."""
+        device = default_device() if device is None else device
 
         def dev(a):
             return torch.as_tensor(np.asarray(a), device=device)

@@ -6,7 +6,7 @@ Each builder takes a mapping from field name to value: arrays as numpy
 (or anything `np.asarray` accepts), static metadata as plain Python
 values, nested objects as nested mappings. `numpy_fields` produces such a
 mapping from any dataclass instance whose array fields convert with
-`np.asarray`.
+`np.asarray`. Tensors land on the given `device` (the card when None).
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import default_device
 from .blob.scene import OpWire, Scene, WarpWire
 from .fem.grid_fem import GridFem, GridLevel
 from .fem.integrator import FemState
@@ -42,6 +43,7 @@ def _tensor(v, device):
 
 
 def _build(cls, fields: dict, device, nested=None):
+    device = default_device() if device is None else device
     nested = nested or {}
     kw = {}
     for f in dataclasses.fields(cls):
@@ -55,7 +57,7 @@ def _build(cls, fields: dict, device, nested=None):
     return cls(**kw)
 
 
-def scene(fields: dict, device="cpu") -> Scene:
+def scene(fields: dict, device=None) -> Scene:
     """Packed Scene; the wiring tuples are rebuilt as the port's types."""
     def wiring(v):
         return tuple(OpWire(*w) for w in v)
@@ -70,13 +72,13 @@ def scene(fields: dict, device="cpu") -> Scene:
                   {"wiring": wiring, "warp_groups": warp_groups})
 
 
-def tet_mesh(fields: dict, device="cpu") -> TetMesh:
+def tet_mesh(fields: dict, device=None) -> TetMesh:
     return _build(TetMesh, fields, device, {
         "n_nodes": int, "n_tets": int,
     })
 
 
-def grid_fem(fields: dict, device="cpu") -> GridFem:
+def grid_fem(fields: dict, device=None) -> GridFem:
     """GridFem with every multigrid level and the coarse inverse."""
     def levels(v):
         return tuple(_build(GridLevel, lv, device, {"dims": tuple})
@@ -88,12 +90,12 @@ def grid_fem(fields: dict, device="cpu") -> GridFem:
     })
 
 
-def disp_interp(fields: dict, device="cpu") -> DispInterp:
+def disp_interp(fields: dict, device=None) -> DispInterp:
     """DispInterp of either kind (biharmonic or Wendland)."""
     if fields["kind"] not in ("biharmonic", "wendland"):
         raise ValueError(f"unknown interpolant kind {fields['kind']!r}")
     return _build(DispInterp, fields, device)
 
 
-def fem_state(fields: dict, device="cpu") -> FemState:
+def fem_state(fields: dict, device=None) -> FemState:
     return _build(FemState, fields, device)

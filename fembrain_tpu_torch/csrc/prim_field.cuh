@@ -1,11 +1,16 @@
 // Device helpers shared by the tile-trace kernels (trace_additive.cu,
-// trace_general.cu): the Wyvill field of one packed prim row and the
-// sphere-trace step table.
+// trace_general.cu): the Wyvill field of one packed prim row, the
+// sphere-trace step table, and the warp-wide hull of the lanes' points
+// that both kernels cull against.
 //
 // Counterpart of fembrain_tpu/ops/field.py `rows_prim_fields` (the typed
 // skeleton distances) and fembrain_tpu/render/sphere_trace.py
 // `support_radius_bound`; the plain PyTorch versions are in
 // fembrain_tpu_torch/ops/field.py and render/sphere_trace.py.
+//
+// A prim row is read from shared memory as six 16-byte loads: every lane
+// of a warp reads the same row, and where the kernels are paced by the
+// instruction rate a scalar load costs as much as a vector one.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -35,11 +40,14 @@ __device__ __forceinline__ float dot3(float ax, float ay, float az,
   return ax * bx + ay * by + az * bz;
 }
 
+// x * rsqrt(x) for x > 0: one special-function instruction and a multiply
+// in place of the IEEE square root's correction sequence (2 ulp).
+__device__ __forceinline__ float sqrt_fast(float x) { return x * rsqrtf(x); }
+
 __device__ inline float dist2_triangle(float vx, float vy, float vz,
-                                       const float* p) {
-  const float ax = p[12], ay = p[13], az = p[14];
-  const float bx = p[15], by = p[16], bz = p[17];
-  const float cx = p[18], cy = p[19], cz = p[20];
+                                       float ax, float ay, float az,
+                                       float bx, float by, float bz,
+                                       float cx, float cy, float cz) {
   const float abx = bx - ax, aby = by - ay, abz = bz - az;
   const float acx = cx - ax, acy = cy - ay, acz = cz - az;
   const float d1 = dot3(abx, aby, abz, vx - ax, vy - ay, vz - az);
@@ -81,18 +89,22 @@ __device__ inline float dist2_triangle(float vx, float vy, float vz,
 }
 
 // Wyvill field of one packed prim row at a point (world coordinates for
-// the additive kernel, warped coordinates for the general one). Rows carry
-// the type the evaluator should use: in the additive kernel, points that
-// share a block with lines or cylinders arrive as degenerate lines
-// (dir = pos) or cylinders (dir = 0, r = h = 0).
+// the additive kernel, warped coordinates for the general one). `p` is
+// 16-byte aligned. Rows carry the type the evaluator should use: in the
+// additive kernel, points that share a block with lines or cylinders
+// arrive as degenerate lines (dir = pos) or cylinders (dir = 0, r = h = 0).
 __device__ inline float prim_field(const float* p, float x, float y,
                                    float z) {
-  const float vx = p[0] * x + p[1] * y + p[2] * z + p[3];
-  const float vy = p[4] * x + p[5] * y + p[6] * z + p[7];
-  const float vz = p[8] * x + p[9] * y + p[10] * z + p[11];
-  const float px = p[12], py = p[13], pz = p[14];
-  const float qx = p[15], qy = p[16], qz = p[17];
-  const int type = static_cast<int>(p[22]);
+  const float4* row = reinterpret_cast<const float4*>(p);
+  const float4 m0 = row[0], m1 = row[1], m2 = row[2];
+  const float4 r3 = row[3], r4 = row[4], r5 = row[5];
+  const float vx = m0.x * x + m0.y * y + m0.z * z + m0.w;
+  const float vy = m1.x * x + m1.y * y + m1.z * z + m1.w;
+  const float vz = m2.x * x + m2.y * y + m2.z * z + m2.w;
+  const float px = r3.x, py = r3.y, pz = r3.z;
+  const float qx = r3.w, qy = r4.x, qz = r4.y;
+  const float res0 = r4.z, res1 = r4.w, res2 = r5.x;
+  const int type = static_cast<int>(r5.z);
   float d2 = kBig;
   switch (type) {
     case kPoint: {
@@ -113,20 +125,20 @@ __device__ inline float prim_field(const float* p, float x, float y,
       const float sx = vx - px, sy = vy - py, sz = vz - pz;
       float h = dot3(sx, sy, sz, qx, qy, qz);
       const float pp = dot3(sx, sy, sz, sx, sy, sz);
-      const float r = fmaxf(0.0f, sqrtf(fmaxf(pp - h * h, 1e-20f)) - p[18]);
-      h = h > 0.0f ? fmaxf(0.0f, h - p[19]) : h;
+      const float r = fmaxf(0.0f, sqrt_fast(fmaxf(pp - h * h, 1e-20f)) - res0);
+      h = h > 0.0f ? fmaxf(0.0f, h - res1) : h;
       d2 = r * r + h * h;
       break;
     }
     case kDisc:
     case kRing: {
-      const float rad = p[18];
+      const float rad = res0;
       const float sx = vx - px, sy = vy - py, sz = vz - pz;
       const float dn = dot3(sx, sy, sz, qx, qy, qz);
       const float ix = sx - dn * qx, iy = sy - dn * qy, iz = sz - dn * qz;
       const float len2 = dot3(ix, iy, iz, ix, iy, iz);
       const float dd = dot3(sx, sy, sz, sx, sy, sz);
-      const float inv_len = 1.0f / sqrtf(len2 < 1e-24f ? 1.0f : len2);
+      const float inv_len = rsqrtf(len2 < 1e-24f ? 1.0f : len2);
       const float ex = rad * ix * inv_len - sx, ey = rad * iy * inv_len - sy,
                   ez = rad * iz * inv_len - sz;
       const float edge2 = dot3(ex, ey, ez, ex, ey, ez);
@@ -138,7 +150,7 @@ __device__ inline float prim_field(const float* p, float x, float y,
       break;
     }
     case kCube: {
-      const float side = p[18];
+      const float side = res0;
       const float ex = fmaxf(fabsf(vx - px) - side, 0.0f);
       const float ey = fmaxf(fabsf(vy - py) - side, 0.0f);
       const float ez = fmaxf(fabsf(vz - pz) - side, 0.0f);
@@ -146,13 +158,14 @@ __device__ inline float prim_field(const float* p, float x, float y,
       break;
     }
     case kTriangle:
-      d2 = dist2_triangle(vx, vy, vz, p);
+      d2 = dist2_triangle(vx, vy, vz, px, py, pz, qx, qy, qz, res0, res1,
+                          res2);
       break;
     case kQuadricPoint: {
       // Polynomial inside the support radius dir.z, Wyvill outside.
       const float ex = vx - px, ey = vy - py, ez = vz - pz;
       const float dd = dot3(ex, ey, ez, ex, ey, ez);
-      return qz > dd ? dd * dd * p[18] + dd * p[19] + p[20] : wyvill(dd);
+      return qz > dd ? dd * dd * res0 + dd * res1 + res2 : wyvill(dd);
     }
     default:
       break;
@@ -174,6 +187,47 @@ __device__ __forceinline__ float support_radius_bound(float fv) {
   if (fv <= 0.001f) r = 0.9487f;
   if (fv <= 0.0001f) r = 0.9765f;
   return r;
+}
+
+// Bounding box of a warp's points, for culls that are uniform across the
+// warp. Floats are reduced as order-preserving signed integer keys, so
+// each of the six extremes is one warp reduction instruction.
+struct Hull {
+  float lo[3], hi[3];
+};
+
+__device__ __forceinline__ int float_key(float f) {
+  const int i = __float_as_int(f);
+  return i ^ ((i >> 31) & 0x7fffffff);
+}
+
+__device__ __forceinline__ float key_float(int k) {
+  return __int_as_float(k ^ ((k >> 31) & 0x7fffffff));
+}
+
+// Hull of (x, y, z) over the lanes with m set (1e30 / -1e30 when none is).
+// Every lane of the warp must call it.
+__device__ __forceinline__ Hull warp_hull(bool m, float x, float y, float z) {
+  const float p[3] = {x, y, z};
+  Hull h;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    h.lo[k] = key_float(
+        __reduce_min_sync(0xffffffffu, float_key(m ? p[k] : 1e30f)));
+    h.hi[k] = key_float(
+        __reduce_max_sync(0xffffffffu, float_key(m ? p[k] : -1e30f)));
+  }
+  return h;
+}
+
+constexpr float kHullEps = 1e-4f;  // slack of the hull/box overlap test
+
+// Whether the hull meets the box stored as lo xyz _, hi xyz _.
+__device__ __forceinline__ bool hull_meets(const Hull& h, float4 lo,
+                                           float4 hi) {
+  return h.lo[0] <= hi.x + kHullEps && h.hi[0] >= lo.x - kHullEps &&
+         h.lo[1] <= hi.y + kHullEps && h.hi[1] >= lo.y - kHullEps &&
+         h.lo[2] <= hi.z + kHullEps && h.hi[2] >= lo.z - kHullEps;
 }
 
 }  // namespace fb

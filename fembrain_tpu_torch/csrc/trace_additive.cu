@@ -14,28 +14,55 @@
 // The plain PyTorch version of all three is fembrain_tpu_torch/render/
 // tile_trace.py `_march_plain`; the host-side layout is `prepare_tiles`.
 //
-// What bounds it on an H100: per ray it reads 36 bytes and writes 8, so
-// device memory is idle; the work is scalar fp32 arithmetic in a
-// data-dependent loop, about 30 flops per live prim (8 per block), in K2
-// about 20 per live Wendland center (32 per block) at every refresh, and in
-// K4 about 12 per center and iteration at every eval (brain: M = 112, two
-// iterations, so the pull-back costs as much as the field). The limits are
-// FP32 issue rate and the lanes a tile keeps busy after they finish: a
-// tile marches until its last ray is done. Design:
-//   * one ray per thread, one tile (a 16x16 pixel block at tile = 256)
-//     per CTA, so neighbouring rays share a loop and a cull decision;
-//   * prim rows, block boxes and, in K2 and K4, centers, weights (and K2's
-//     center boxes) live in shared memory for the whole march (brain:
-//     16 KB + 7 KB in K2, + 2.7 KB in K4);
-//   * the hull of the live lanes' points is reduced per eval with warp
-//     shuffles and a shared-memory pass, so every block cull is a branch
-//     that is uniform across the CTA; the cull is exact (compact support);
-//   * K4 computes |x - c| directly: the TPU kernel's recentred quadratic
-//     expansion exists for its matrix unit and buys nothing here;
-//   * lanes whose value is discarded skip the prim and center loops;
-//   * the loop test is a CTA-wide `__syncthreads_or`, once per iteration of
-//     two sub-steps (K1, K4) or one refresh plus k_refresh - 1 model evals
-//     (K2).
+// What bounds it on an H100: operations, not bytes. It needs 16 bytes of
+// every ray (alive0 and t_exit read, t and hit written) and 28 more of a
+// ray that starts alive (0.013-0.021 ms of memory time for a 1080p
+// frame); the work
+// is scalar fp32 arithmetic in a data-dependent march: per field
+// evaluation that a ray needs, 30-46 flops for every prim whose support
+// box holds the point, in K4 also 16 flops per center and pull-back
+// iteration, in K2 23 per center in reach at every refresh. On a 1080p
+// brain frame (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6) K4 runs
+// at 0.44 of the fp32 bound for that work: its center loop takes about
+// 12 instructions for 16 counted flops. K1 and K2 need 0.014 and 0.039 ms
+// of arithmetic, a little more than their bytes, and both run at 0.02 of
+// that bound: fixed costs hold them (the CTAs of empty tiles, the
+// copy into shared memory, a march that is a serial chain of evals).
+// What the kernel pays beyond the bound: prims of
+// blocks that the warp's hull reaches and the lane's point does not, lanes
+// of a warp that are done while others march, and the instruction
+// slots of loads, branches and the march's own bookkeeping. Design:
+//   * one ray a thread, one tile (a 16x16 pixel block at tile = 256) per
+//     CTA; a warp takes an 8x4 pixel patch of it, so its rays end together
+//     more often and its hull is tight;
+//   * a tile with no live ray writes its misses and leaves before it
+//     copies anything; the others copy prim rows, block boxes and, in K2
+//     and K4, centers and weights into shared memory once, laid out for
+//     wide loads (a prim row is six 16-byte loads, a center with its
+//     weights one of 16 and one of 8): a scalar load costs an instruction
+//     slot like a vector one. The center loop is paced by the bytes shared
+//     memory hands to each lane, so a center takes its 24 bytes and no
+//     padding (padded to 32 bytes the loop ran slower, and from
+//     constant memory slower still);
+//   * after that copy K1 and K4 have no CTA-wide barrier: a ray's result
+//     does not depend on its neighbours, so every warp marches on its own
+//     and leaves when its 32 rays are done. K2 keeps the tile-wide loop
+//     test because its lanes refresh their rest-point model for as long
+//     as the tile marches;
+//   * the block cull is per warp and per eval: the hull of the points
+//     whose value is needed (six warp reductions on integer keys), each
+//     lane tests one block box against it, a ballot makes the list, and
+//     the warp walks the set bits. The cull is exact (compact support: a
+//     skipped block adds exactly 0), so the hull is taken over the needed
+//     lanes alone and finished lanes do no work, in K4 no pull-back
+//     either;
+//   * K4 computes |x - c| directly, its square root as one
+//     special-function instruction (sqrt.approx): the TPU kernel's
+//     recentred quadratic expansion exists for its matrix unit and buys
+//     nothing here.
+// A counting build of each mode (the `counts` argument) adds up the needed
+// lane-evals and 32 for every warp-eval that ran, whose ratio is the share
+// of busy lanes; the shipped path does not count.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -44,12 +71,19 @@
 
 namespace {
 
+using fb::Hull;
+using fb::hull_meets;
 using fb::kPrimRow;
 using fb::prim_field;
 using fb::support_radius_bound;
+using fb::warp_hull;
 
 constexpr int kPrimBlock = 8;
-constexpr float kHullEps = 1e-4f;  // slack of the hull/box overlap test
+constexpr int kMaxThreads = 256;
+// Three CTAs of 256 threads an SM: 80 registers a thread. The few spilled
+// bytes that costs K2 and K3 are cheaper than running two CTAs an SM.
+constexpr int kMinCtas = 3;
+constexpr unsigned kFull = 0xffffffffu;
 
 enum Mode { kRest = 0, kWendland = 1, kBiharmonic = 2 };
 
@@ -61,6 +95,7 @@ struct Args {
   const float* prims;      // [n_prims, kPrimRow]
   float* t_out;            // [n]
   float* hit_out;          // [n]
+  unsigned long long* counts;  // counting build: needed lane-evals, lanes run
   int n_rays, n_prims, n_blocks, dyn_cull;
   float iso, r_iso, base_step;
   int max_steps, bisect_steps;
@@ -79,9 +114,14 @@ struct Args {
   int fp_iters;
 };
 
-// Shared-memory layout in 4-byte words, shared by host and device.
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+
+// Shared-memory layout in 4-byte words, shared by host and device; every
+// table starts on a 16-byte boundary. Boxes are stored as lo xyz _ | hi
+// xyz _; a center with its weights takes 24 bytes, c xyz w_x in `centers`
+// and w_y w_z in `weights`.
 struct Layout {
-  int prims, boxes, red, hull, live, centers, weights, cboxes, waff, clive;
+  int prims, boxes, live, centers, weights, waff, cboxes, clive;
   int total;
 };
 
@@ -89,18 +129,16 @@ __host__ __device__ inline Layout make_layout(const Args& a, int mode) {
   Layout L{};
   int o = 0;
   L.prims = o;  o += a.n_prims * kPrimRow;
-  L.boxes = o;  o += a.n_blocks * 6;
-  L.red = o;    o += 32 * 6;
-  L.hull = o;   o += 8;
-  L.live = o;   o += a.n_blocks;
+  L.boxes = o;  o += a.n_blocks * 8;
+  L.live = o;   o += round4(a.n_blocks);
   if (mode != kRest) {
-    L.centers = o;  o += a.n_centers * 3;
-    L.weights = o;  o += a.n_centers * 3;
+    L.centers = o;  o += a.n_centers * 4;
+    L.weights = o;  o += round4(a.n_centers * 2);
     L.waff = o;     o += 12;
   }
   if (mode == kWendland) {
-    L.cboxes = o;   o += a.n_cb * 6;
-    L.clive = o;    o += a.n_cb;
+    L.cboxes = o;   o += a.n_cb * 8;
+    L.clive = o;    o += round4(a.n_cb);
   }
   L.total = o;
   return L;
@@ -108,14 +146,12 @@ __host__ __device__ inline Layout make_layout(const Args& a, int mode) {
 
 struct Shared {
   const float* prims;
-  const float* boxes;
-  float* red;
-  float* hull;
+  const float4* boxes;
   const int* live;
-  const float* centers;
-  const float* weights;
-  const float* cboxes;
+  const float4* centers;  // c xyz, w_x
+  const float2* weights;  // w_y, w_z
   const float* waff;
+  const float4* cboxes;
   const int* clive;
 };
 
@@ -129,71 +165,48 @@ struct Carry {
   float xr, yr, zr, vx, vy, vz, tr;
 };
 
-// CTA-wide bounding box of (x, y, z) over the lanes with m set, written to
-// hull[0..5] = lo xyz, hi xyz (1e30 / -1e30 when no lane is set). Every
-// thread of the CTA must call it.
-__device__ void cta_hull(bool m, float x, float y, float z, float* red,
-                         float* hull) {
-  float v[6] = {m ? x : 1e30f,  m ? y : 1e30f,  m ? z : 1e30f,
-                m ? x : -1e30f, m ? y : -1e30f, m ? z : -1e30f};
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      v[k] = fminf(v[k], __shfl_xor_sync(0xffffffffu, v[k], off));
-      v[k + 3] = fmaxf(v[k + 3], __shfl_xor_sync(0xffffffffu, v[k + 3], off));
-    }
+// Copy n boxes [n, 6] into the padded lo xyz _ | hi xyz _ layout.
+__device__ void fill_boxes(float* dst, const float* src, int n) {
+  for (int i = threadIdx.x; i < n * 8; i += blockDim.x) {
+    const int b = i >> 3, k = i & 7;
+    dst[i] = (k & 3) == 3 ? 0.0f : src[6 * b + (k >> 2) * 3 + (k & 3)];
   }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < 6; ++k) red[warp * 6 + k] = v[k];
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const int n_warps = blockDim.x >> 5;
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      v[k] = lane < n_warps ? red[lane * 6 + k] : 1e30f;
-      v[k + 3] = lane < n_warps ? red[lane * 6 + k + 3] : -1e30f;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        v[k] = fminf(v[k], __shfl_xor_sync(0xffffffffu, v[k], off));
-        v[k + 3] = fmaxf(v[k + 3], __shfl_xor_sync(0xffffffffu, v[k + 3], off));
-      }
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int k = 0; k < 6; ++k) hull[k] = v[k];
-    }
-  }
-  __syncthreads();
 }
 
-__device__ __forceinline__ bool hull_meets(const float* h, const float* box) {
-  return h[0] <= box[3] + kHullEps && h[3] >= box[0] - kHullEps &&
-         h[1] <= box[4] + kHullEps && h[4] >= box[1] - kHullEps &&
-         h[2] <= box[5] + kHullEps && h[5] >= box[2] - kHullEps;
+// Which of the boxes flagged in `flags` the warp's hull meets, 32 boxes at
+// a time from `base`: a ballot over one box per lane.
+__device__ __forceinline__ unsigned live_mask(const int* flags,
+                                              const float4* boxes, int n,
+                                              int base, bool cull,
+                                              const Hull& h) {
+  const int b = base + (threadIdx.x & 31);
+  bool ok = b < n && flags[b] != 0;
+  if (ok && cull) ok = hull_meets(h, boxes[2 * b], boxes[2 * b + 1]);
+  return __ballot_sync(kFull, ok);
 }
 
-// Rest field minus iso at a point. The block cull tests the hull of the
-// alive0 lanes' points; `need` lanes evaluate the live blocks' prims.
+// Rest field minus iso at a point, for the lanes with `need` set (the
+// others get no value). Blocks are culled against the hull of the needed
+// lanes' points. Every lane of the warp must call it.
 __device__ float field_rest(const Args& a, const Shared& s, float x, float y,
-                            float z, bool hull_lane, bool need) {
-  if (a.dyn_cull) cta_hull(hull_lane, x, y, z, s.red, s.hull);
+                            float z, bool need) {
+  if (!__any_sync(kFull, need)) return 0.0f;
+  Hull h{};
+  if (a.dyn_cull) h = warp_hull(need, x, y, z);
   float f = 0.0f;
-  for (int b = 0; b < a.n_blocks; ++b) {
-    if (!s.live[b]) continue;
-    if (a.dyn_cull && !hull_meets(s.hull, s.boxes + 6 * b)) continue;
-    if (need) {
+  for (int base = 0; base < a.n_blocks; base += 32) {
+    unsigned mask = live_mask(s.live, s.boxes, a.n_blocks, base,
+                              a.dyn_cull != 0, h);
+    if (!need) continue;
+    while (mask) {
+      const int b = base + __ffs(mask) - 1;
+      mask &= mask - 1;
       const float* pb = s.prims + b * kPrimBlock * kPrimRow;
       float bs = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kPrimBlock; ++j) bs += prim_field(pb + j * kPrimRow, x, y, z);
+#pragma unroll 2
+      for (int j = 0; j < kPrimBlock; ++j) {
+        bs += prim_field(pb + j * kPrimRow, x, y, z);
+      }
       f += bs;
     }
   }
@@ -211,31 +224,35 @@ __device__ __forceinline__ void affine_tail(const float* wa, float xx,
 
 // One Wendland fixed-point pull-back iteration x <- y - u(x) at the
 // estimate (xx, yy, zz) for the deformed point (px, py, pz). Center blocks
-// are culled against the hull of the pmask lanes; only pmask lanes use the
-// result.
+// are culled against the hull of the pmask lanes' estimates; only pmask
+// lanes use the result. Every lane of the warp must call it.
 __device__ void pull_one(const Args& a, const Shared& s, float xx, float yy,
                          float zz, float px, float py, float pz, bool pmask,
                          float& ox, float& oy, float& oz) {
-  cta_hull(pmask, xx, yy, zz, s.red, s.hull);
+  const Hull h = warp_hull(pmask, xx, yy, zz);
   float ux, uy, uz;
   affine_tail(s.waff, xx, yy, zz, ux, uy, uz);
-  for (int b = 0; b < a.n_cb; ++b) {
-    if (!s.clive[b] || !hull_meets(s.hull, s.cboxes + 6 * b)) continue;
-    if (pmask) {
-      const float* c = s.centers + 3 * b * a.cen_block;
-      const float* w = s.weights + 3 * b * a.cen_block;
+  for (int base = 0; base < a.n_cb; base += 32) {
+    unsigned mask = live_mask(s.clive, s.cboxes, a.n_cb, base, true, h);
+    if (!pmask) continue;
+    while (mask) {
+      const int b = base + __ffs(mask) - 1;
+      mask &= mask - 1;
+      const float4* c4 = s.centers + b * a.cen_block;
+      const float2* w2 = s.weights + b * a.cen_block;
       float sx = 0.0f, sy = 0.0f, sz = 0.0f;
       for (int j = 0; j < a.cen_block; ++j) {
-        const float dx = xx - c[3 * j], dy = yy - c[3 * j + 1],
-                    dz = zz - c[3 * j + 2];
+        const float4 c = c4[j];
+        const float2 w = w2[j];
+        const float dx = xx - c.x, dy = yy - c.y, dz = zz - c.z;
         const float d = sqrtf(dx * dx + dy * dy + dz * dz);
         const float tt = fminf(d * a.inv_sigma, 1.0f);
         const float omt = 1.0f - tt;
         const float o2 = omt * omt;
         const float ph = o2 * o2 * (4.0f * tt + 1.0f);  // Wendland C2
-        sx += w[3 * j] * ph;
-        sy += w[3 * j + 1] * ph;
-        sz += w[3 * j + 2] * ph;
+        sx += c.w * ph;
+        sy += w.x * ph;
+        sz += w.y * ph;
       }
       ux += sx;
       uy += sy;
@@ -252,7 +269,7 @@ __device__ void pull_one(const Args& a, const Shared& s, float xx, float yy,
 // refresh secant; then evaluate the rest field at the model's point.
 __device__ float eval_wendland(const Args& a, const Shared& s, const Ray& r,
                                float t, Carry& c, bool refresh, bool pmask,
-                               bool hull_lane, bool need) {
+                               bool need) {
   if (refresh) {
     const float adv = t - c.tr;
     float x2, y2, z2;
@@ -274,110 +291,149 @@ __device__ float eval_wendland(const Args& a, const Shared& s, const Ray& r,
   }
   const float a2 = t - c.tr;
   return field_rest(a, s, c.xr + a2 * c.vx, c.yr + a2 * c.vy,
-                    c.zr + a2 * c.vz, hull_lane, need);
+                    c.zr + a2 * c.vz, need);
+}
+
+// One special-function instruction; 0 at 0, so |x - c| needs no floor (the
+// plain version's 1e-24 floor on d2 moves d by at most 1e-12).
+__device__ __forceinline__ float sqrt_approx(float x) {
+  float y;
+  asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Biharmonic-deformed field minus iso at ray parameter t: fp_iters
 // fixed-point iterations from the deformed point over every center, then
-// the rest field at the pulled-back point (its hull cull sees rest points).
-// Lanes whose point neither enters the hull nor is used skip the pull-back.
+// the rest field at the pulled-back point. Only lanes that need the value
+// pull back. The center loop is the kernel's whole cost on a frame whose
+// rays march mostly through empty space, and it is paced by the bytes that
+// shared memory hands to every lane: 24 per center.
 __device__ float eval_biharmonic(const Args& a, const Shared& s,
-                                 const Ray& r, float t, bool hull_lane,
-                                 bool need) {
+                                 const Ray& r, float t, bool need) {
   const float px = r.ox + t * r.dx, py = r.oy + t * r.dy, pz = r.oz + t * r.dz;
   float xx = px, yy = py, zz = pz;
-  if (need || (a.dyn_cull && hull_lane)) {
+  if (need) {
     for (int it = 0; it < a.fp_iters; ++it) {
       float ux, uy, uz;
       affine_tail(s.waff, xx, yy, zz, ux, uy, uz);
       float sx = 0.0f, sy = 0.0f, sz = 0.0f;
+#pragma unroll 8
       for (int j = 0; j < a.n_centers; ++j) {
-        const float dx = xx - s.centers[3 * j], dy = yy - s.centers[3 * j + 1],
-                    dz = zz - s.centers[3 * j + 2];
-        const float d = sqrtf(fmaxf(dx * dx + dy * dy + dz * dz, 1e-24f));
-        sx += s.weights[3 * j] * d;
-        sy += s.weights[3 * j + 1] * d;
-        sz += s.weights[3 * j + 2] * d;
+        const float4 c = s.centers[j];
+        const float2 w = s.weights[j];
+        const float dx = xx - c.x, dy = yy - c.y, dz = zz - c.z;
+        const float d = sqrt_approx(dx * dx + dy * dy + dz * dz);
+        sx += c.w * d;
+        sy += w.x * d;
+        sz += w.y * d;
       }
       xx = px - (ux + sx);
       yy = py - (uy + sy);
       zz = pz - (uz + sz);
     }
   }
-  return field_rest(a, s, xx, yy, zz, hull_lane, need);
+  return field_rest(a, s, xx, yy, zz, need);
 }
 
-template <int kMode>
+// Field minus iso at ray parameter t for the lanes with `need` set. Every
+// lane of the warp must call it.
+template <int kMode, bool kCount>
 __device__ __forceinline__ float eval_at(const Args& a, const Shared& s,
                                          const Ray& r, float t, Carry& c,
-                                         bool refresh, bool pmask,
-                                         bool hull_lane, bool need) {
+                                         bool refresh, bool pmask, bool need) {
+  if (kCount) {
+    const unsigned m = __ballot_sync(kFull, need);
+    if (m != 0 && (threadIdx.x & 31) == 0) {
+      atomicAdd(a.counts, static_cast<unsigned long long>(__popc(m)));
+      atomicAdd(a.counts + 1, 32ull);
+    }
+  }
   if (kMode == kWendland) {
-    return eval_wendland(a, s, r, t, c, refresh, pmask, hull_lane, need);
+    return eval_wendland(a, s, r, t, c, refresh, pmask, need);
   }
-  if (kMode == kBiharmonic) {
-    return eval_biharmonic(a, s, r, t, hull_lane, need);
-  }
+  if (kMode == kBiharmonic) return eval_biharmonic(a, s, r, t, need);
   return field_rest(a, s, r.ox + t * r.dx, r.oy + t * r.dy, r.oz + t * r.dz,
-                    hull_lane, need);
+                    need);
 }
 
+// Whether the march goes on: while any ray of the tile is alive in K2,
+// while any ray of the warp is in K1 and K4.
 template <int kMode>
-__global__ void trace_additive_kernel(Args a) {
-  extern __shared__ float smem[];
-  const Layout L = make_layout(a, kMode);
+__device__ __forceinline__ bool any_alive(bool alive) {
+  if (kMode == kWendland) return __syncthreads_or(alive) != 0;
+  return __any_sync(kFull, alive) != 0;
+}
+
+template <int kMode, bool kCount>
+__global__ void __launch_bounds__(kMaxThreads, kMinCtas)
+    trace_additive_kernel(Args a) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   const int tile = blockIdx.x;
   const int tid = threadIdx.x;
   const int T = blockDim.x;
-  for (int i = tid; i < a.n_prims * kPrimRow; i += T) smem[L.prims + i] = a.prims[i];
-  for (int i = tid; i < a.n_blocks * 6; i += T) smem[L.boxes + i] = a.boxes[i];
-  int* live = reinterpret_cast<int*>(smem + L.live);
-  for (int i = tid; i < a.n_blocks; i += T) live[i] = a.live[tile * a.n_blocks + i];
-  Shared s{smem + L.prims, smem + L.boxes, smem + L.red, smem + L.hull, live,
-           nullptr, nullptr, nullptr, nullptr, nullptr};
-  if (kMode != kRest) {
-    const int m3 = a.n_centers * 3;
-    for (int i = tid; i < m3; i += T) {
-      smem[L.centers + i] = a.centers[i];
-      smem[L.weights + i] = a.weights[i];
-    }
-    for (int i = tid; i < 12; i += T) smem[L.waff + i] = a.waff[i];
-    s.centers = smem + L.centers;
-    s.weights = smem + L.weights;
-    s.waff = smem + L.waff;
+  // A tile of 256 rays is a 16x16 pixel block in row-major order: warp w
+  // takes the 8x4 patch at column 8 (w & 1), row 4 (w >> 1).
+  int slot = tid;
+  if (T == 256) {
+    const int w = tid >> 5, l = tid & 31;
+    slot = ((w >> 1) * 4 + (l >> 3)) * 16 + (w & 1) * 8 + (l & 7);
   }
-  if (kMode == kWendland) {
-    for (int i = tid; i < a.n_cb * 6; i += T) smem[L.cboxes + i] = a.cboxes[i];
-    int* clive = reinterpret_cast<int*>(smem + L.clive);
-    for (int i = tid; i < a.n_cb; i += T) clive[i] = a.clive[tile * a.n_cb + i];
-    s.cboxes = smem + L.cboxes;
-    s.clive = clive;
-  }
-  __syncthreads();
-
   const int n = a.n_rays;
-  const int g = tile * T + tid;
-  const Ray r{a.rays[g], a.rays[n + g], a.rays[2 * n + g],
-              a.rays[3 * n + g], a.rays[4 * n + g], a.rays[5 * n + g]};
-  const float t_enter = a.rays[6 * n + g];
+  const int g = tile * T + slot;
   const float t_exit = a.rays[7 * n + g];
   const bool alive0 = a.rays[8 * n + g] > 0.0f;
-  const float inv_stretch = a.tile_rows[4 * tile];
-  const float shrink = a.tile_rows[4 * tile + 1];
-  const float slack = a.tile_rows[4 * tile + 2];
-  const float ldrift = a.tile_rows[4 * tile + 3];
 
-  // A tile with no live ray skips the march: every lane misses.
+  // A tile with no live ray skips the copy and the march: every lane
+  // misses.
   if (!__syncthreads_or(alive0)) {
     a.t_out[g] = t_exit;
     a.hit_out[g] = 0.0f;
     return;
   }
 
+  const Layout L = make_layout(a, kMode);
+  {
+    const float4* src = reinterpret_cast<const float4*>(a.prims);
+    for (int i = tid; i < a.n_prims * (kPrimRow / 4); i += T) smem4[i] = src[i];
+  }
+  fill_boxes(smem + L.boxes, a.boxes, a.n_blocks);
+  int* live = reinterpret_cast<int*>(smem + L.live);
+  for (int i = tid; i < a.n_blocks; i += T) live[i] = a.live[tile * a.n_blocks + i];
+  Shared s{smem + L.prims, reinterpret_cast<const float4*>(smem + L.boxes),
+           live, nullptr, nullptr, nullptr, nullptr, nullptr};
+  if (kMode != kRest) {
+    for (int i = tid; i < a.n_centers * 6; i += T) {
+      const int j = i / 6, k = i - 6 * j;
+      const float v = k < 3 ? a.centers[3 * j + k] : a.weights[3 * j + k - 3];
+      smem[k < 4 ? L.centers + 4 * j + k : L.weights + 2 * j + k - 4] = v;
+    }
+    for (int i = tid; i < 12; i += T) smem[L.waff + i] = a.waff[i];
+    s.centers = reinterpret_cast<const float4*>(smem + L.centers);
+    s.weights = reinterpret_cast<const float2*>(smem + L.weights);
+    s.waff = smem + L.waff;
+  }
+  if (kMode == kWendland) {
+    fill_boxes(smem + L.cboxes, a.cboxes, a.n_cb);
+    int* clive = reinterpret_cast<int*>(smem + L.clive);
+    for (int i = tid; i < a.n_cb; i += T) clive[i] = a.clive[tile * a.n_cb + i];
+    s.cboxes = reinterpret_cast<const float4*>(smem + L.cboxes);
+    s.clive = clive;
+  }
+  __syncthreads();
+
+  const Ray r{a.rays[g], a.rays[n + g], a.rays[2 * n + g],
+              a.rays[3 * n + g], a.rays[4 * n + g], a.rays[5 * n + g]};
+  const float t_enter = a.rays[6 * n + g];
+  const float inv_stretch = a.tile_rows[4 * tile];
+  const float shrink = a.tile_rows[4 * tile + 1];
+  const float slack = a.tile_rows[4 * tile + 2];
+  const float ldrift = a.tile_rows[4 * tile + 3];
+
   Carry c{r.ox + t_enter * r.dx, r.oy + t_enter * r.dy, r.oz + t_enter * r.dz,
           r.dx, r.dy, r.dz, t_enter};
-  const float f0 = eval_at<kMode>(a, s, r, t_enter, c, true, alive0,
-                                  alive0, alive0);
+  const float f0 =
+      eval_at<kMode, kCount>(a, s, r, t_enter, c, true, alive0, alive0);
   float t = t_enter, f = f0, t_prev = t_enter, f_prev = f0;
   bool found = alive0 && f0 >= 0.0f;
   bool alive = alive0 && f0 < 0.0f;
@@ -385,7 +441,7 @@ __global__ void trace_additive_kernel(Args a) {
   // `it` counts sub-steps; the loop test runs once per iteration.
   const int n_sub = kMode == kWendland ? a.k_refresh : 2;
   int it = 0;
-  while (it < a.max_steps && __syncthreads_or(alive)) {
+  while (it < a.max_steps && any_alive<kMode>(alive)) {
     for (int k = 0; k < n_sub; ++k) {
       const float rr = support_radius_bound(f + a.iso);
       float d = (rr - a.r_iso) * inv_stretch;
@@ -399,8 +455,8 @@ __global__ void trace_additive_kernel(Args a) {
       }
       const float dt = fmaxf(a.base_step, 0.95f * d);
       const float t_new = fminf(t + dt, t_exit);
-      const float f_new = eval_at<kMode>(a, s, r, t_new, c, k == 0, alive0,
-                                         alive0, alive);
+      const float f_new =
+          eval_at<kMode, kCount>(a, s, r, t_new, c, k == 0, alive0, alive);
       if (alive) {
         const bool crossed = f_new >= 0.0f;
         const bool done = t_new >= t_exit && f_new < 0.0f;
@@ -416,12 +472,12 @@ __global__ void trace_additive_kernel(Args a) {
   }
 
   // Bisection on [t_prev, t], then a secant. In K2 the first halving
-  // refreshes the pull-back with the hull narrowed to the found lanes.
+  // refreshes the pull-back of the found lanes.
   float ta = t_prev, tb = t, fa = f_prev, fb = f;
   for (int i = 0; i < a.bisect_steps; ++i) {
     const float m = 0.5f * (ta + tb);
-    const float fm = eval_at<kMode>(a, s, r, m, c, i == 0, found, alive0,
-                                    found);
+    const float fm =
+        eval_at<kMode, kCount>(a, s, r, m, c, i == 0, found, found);
     if (fm < 0.0f) {
       ta = m;
       fa = fm;
@@ -438,24 +494,31 @@ __global__ void trace_additive_kernel(Args a) {
   a.hit_out[g] = found ? 1.0f : 0.0f;
 }
 
-template <int kMode>
-int launch(const Args& a, int tile, void* stream) {
-  if (a.n_rays == 0) return 0;
+template <int kMode, bool kCount>
+int launch_one(const Args& a, int tile, void* stream) {
   const size_t bytes = sizeof(float) * make_layout(a, kMode).total;
   cudaError_t err = cudaFuncSetAttribute(
-      trace_additive_kernel<kMode>,
+      trace_additive_kernel<kMode, kCount>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  trace_additive_kernel<kMode>
+  trace_additive_kernel<kMode, kCount>
       <<<a.n_rays / tile, tile, bytes, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int kMode>
+int launch(const Args& a, int tile, void* stream) {
+  if (a.n_rays == 0) return 0;
+  if (a.counts != nullptr) return launch_one<kMode, true>(a, tile, stream);
+  return launch_one<kMode, false>(a, tile, stream);
+}
+
 Args common_args(const float* rays, const int* live, const float* boxes,
                  const float* tile_rows, const float* prims, float* t_out,
-                 float* hit_out, int n_rays, int n_prims, int n_blocks,
-                 int dyn_cull, float iso, float r_iso, float base_step,
-                 int max_steps, int bisect_steps) {
+                 float* hit_out, unsigned long long* counts, int n_rays,
+                 int n_prims, int n_blocks, int dyn_cull, float iso,
+                 float r_iso, float base_step, int max_steps,
+                 int bisect_steps) {
   Args a{};
   a.rays = rays;
   a.live = live;
@@ -464,6 +527,7 @@ Args common_args(const float* rays, const int* live, const float* boxes,
   a.prims = prims;
   a.t_out = t_out;
   a.hit_out = hit_out;
+  a.counts = counts;
   a.n_rays = n_rays;
   a.n_prims = n_prims;
   a.n_blocks = n_blocks;
@@ -478,31 +542,37 @@ Args common_args(const float* rays, const int* live, const float* boxes,
 
 }  // namespace
 
-// K1: rest trace. Returns a cudaError_t code (0 on success).
+// Every entry point returns a cudaError_t code (0 on success). `counts`
+// is null, or two zeroed 64-bit counters for the counting build: needed
+// lane-evals, and 32 for every warp-eval that ran.
+
+// K1: rest trace.
 extern "C" int fb_trace_additive_rest(
     const float* rays, const int* live, const float* boxes,
     const float* tile_rows, const float* prims, float* t_out, float* hit_out,
-    int n_rays, int tile, int n_prims, int n_blocks, int dyn_cull, float iso,
-    float r_iso, float base_step, int max_steps, int bisect_steps,
-    void* stream) {
+    unsigned long long* counts, int n_rays, int tile, int n_prims,
+    int n_blocks, int dyn_cull, float iso, float r_iso, float base_step,
+    int max_steps, int bisect_steps, void* stream) {
   const Args a = common_args(rays, live, boxes, tile_rows, prims, t_out,
-                             hit_out, n_rays, n_prims, n_blocks, dyn_cull, iso,
-                             r_iso, base_step, max_steps, bisect_steps);
+                             hit_out, counts, n_rays, n_prims, n_blocks,
+                             dyn_cull, iso, r_iso, base_step, max_steps,
+                             bisect_steps);
   return launch<kRest>(a, tile, stream);
 }
 
-// K2: Wendland-deformed trace. Returns a cudaError_t code (0 on success).
+// K2: Wendland-deformed trace.
 extern "C" int fb_trace_additive_wendland(
     const float* rays, const int* live, const float* boxes,
     const float* tile_rows, const float* prims, float* t_out, float* hit_out,
-    int n_rays, int tile, int n_prims, int n_blocks, int dyn_cull, float iso,
-    float r_iso, float base_step, int max_steps, int bisect_steps,
-    const float* centers, const float* weights, const float* waff,
-    const float* cboxes, const int* clive, int n_cb, int cen_block,
-    float inv_sigma, int k_refresh, void* stream) {
+    unsigned long long* counts, int n_rays, int tile, int n_prims,
+    int n_blocks, int dyn_cull, float iso, float r_iso, float base_step,
+    int max_steps, int bisect_steps, const float* centers,
+    const float* weights, const float* waff, const float* cboxes,
+    const int* clive, int n_cb, int cen_block, float inv_sigma, int k_refresh,
+    void* stream) {
   Args a = common_args(rays, live, boxes, tile_rows, prims, t_out, hit_out,
-                       n_rays, n_prims, n_blocks, dyn_cull, iso, r_iso,
-                       base_step, max_steps, bisect_steps);
+                       counts, n_rays, n_prims, n_blocks, dyn_cull, iso,
+                       r_iso, base_step, max_steps, bisect_steps);
   a.centers = centers;
   a.weights = weights;
   a.waff = waff;
@@ -516,17 +586,18 @@ extern "C" int fb_trace_additive_wendland(
   return launch<kWendland>(a, tile, stream);
 }
 
-// K4: biharmonic-deformed trace. Returns a cudaError_t code (0 on success).
+// K4: biharmonic-deformed trace.
 extern "C" int fb_trace_additive_biharmonic(
     const float* rays, const int* live, const float* boxes,
     const float* tile_rows, const float* prims, float* t_out, float* hit_out,
-    int n_rays, int tile, int n_prims, int n_blocks, int dyn_cull, float iso,
-    float r_iso, float base_step, int max_steps, int bisect_steps,
-    const float* centers, const float* weights, const float* waff,
-    int n_centers, int fp_iters, void* stream) {
+    unsigned long long* counts, int n_rays, int tile, int n_prims,
+    int n_blocks, int dyn_cull, float iso, float r_iso, float base_step,
+    int max_steps, int bisect_steps, const float* centers,
+    const float* weights, const float* waff, int n_centers, int fp_iters,
+    void* stream) {
   Args a = common_args(rays, live, boxes, tile_rows, prims, t_out, hit_out,
-                       n_rays, n_prims, n_blocks, dyn_cull, iso, r_iso,
-                       base_step, max_steps, bisect_steps);
+                       counts, n_rays, n_prims, n_blocks, dyn_cull, iso,
+                       r_iso, base_step, max_steps, bisect_steps);
   a.centers = centers;
   a.weights = weights;
   a.waff = waff;

@@ -14,18 +14,39 @@
 // The plain PyTorch version is fembrain_tpu_torch/render/tile_trace.py
 // `trace_tiles_general_plain`; the host-side layout is `prepare_general`.
 //
-// What bounds it on an H100: per ray it reads 36 bytes and writes 8; the
-// work is scalar fp32 arithmetic, about 30 flops per prim and eval with no
-// cull (the general fold admits none), times the evals of a fixed-step
-// march on non-monotone scenes. The limits are FP32 issue rate and the
-// lanes a tile keeps busy after they finish. Design:
-//   * one ray per thread, one tile (a 16x16 pixel block at tile = 256)
-//     per CTA, two masked sub-steps per `__syncthreads_or` loop test;
-//   * prim rows, the op steps and the warp chains live in shared memory
-//     for the whole march (brain resection: 16 KB);
-//   * a lane evaluates the field only where its value is used;
+// What bounds it on an H100: operations, not bytes. It needs 16 bytes of
+// every ray and 28 more of a ray that starts alive (0.015 ms of memory
+// time); the work is scalar fp32 arithmetic, 30-46 flops for
+// every prim whose support box holds the evaluation point, times the
+// evals of a fixed-step march on non-monotone scenes. With the culls
+// below that is under 0.04 ms of arithmetic on the 1080p brain resection
+// (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6), where the kernel
+// runs at 0.035 of its bound: fixed costs hold it (the CTAs of empty
+// tiles, the copy into shared memory, a march that is a serial chain of
+// evals). What the kernel pays beyond the bound: prims that the warp's
+// hull reaches and the lane's point does not, lanes of a warp that are
+// done while others march, the fold's table reads and its op registers
+// in local memory. Design:
+//   * one ray a thread, one tile (a 16x16 pixel block at tile = 256) per
+//     CTA, a warp on an 8x4 pixel patch of it; a tile with no live ray
+//     leaves before it copies anything; after the copy there is no CTA-wide
+//     barrier: a ray's result does not depend on its neighbours, so every
+//     warp marches on its own, two masked sub-steps per loop test;
+//   * a prim's field is exactly 0 outside its support box whatever op
+//     consumes it, so prims under no warp are culled: per tile by static
+//     flags from the host (the tile's ray hull against the prim boxes),
+//     and per warp and eval against the hull of the points whose value is
+//     needed (six warp reductions, one box test per lane, a ballot per 32
+//     prims kept as a bit mask in shared memory). A culled prim
+//     contributes the 0.0 it would have computed, so results do not
+//     change by a bit; sums walk the mask's set bits. Prims under a warp
+//     chain are always evaluated;
+//   * prim rows, the op steps (two 16-byte loads each) and the warp chains
+//     live in shared memory for the whole march;
 //   * the warped point of the last group seen is cached, so scenes whose
 //     groups are contiguous warp once per group and eval.
+// A counting build (the `counts` argument) adds up the needed lane-evals
+// and 32 for every warp-eval that ran; the shipped path does not count.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -35,13 +56,22 @@
 
 namespace {
 
+using fb::Hull;
+using fb::hull_meets;
 using fb::kPrimRow;
 using fb::prim_field;
 using fb::support_radius_bound;
+using fb::warp_hull;
 
 constexpr int kStepRow = 6;   // otype, dst, l_kind, l_idx, r_kind, r_idx
+constexpr int kStepWords = 8;  // in shared memory: the row, then p0, p1
 constexpr int kWarpRow = 8;   // wtype, axis_a, axis_b, pad, params[4]
 constexpr int kMaxRegs = 32;  // tile_trace.MAX_REGS
+constexpr int kMaxThreads = 256;
+// Three CTAs of 256 threads an SM: 80 registers a thread. The few spilled
+// bytes that costs K2 and K3 are cheaper than running two CTAs an SM.
+constexpr int kMinCtas = 3;
+constexpr unsigned kFull = 0xffffffffu;
 
 enum Src { kSrcReg = 0, kSrcPrim = 1, kSrcRange = 2, kSrcZero = 3 };
 enum OpType {
@@ -49,6 +79,7 @@ enum OpType {
   kRicci = 5, kGradientBlend = 6, kFastQuadric = 7, kCache = 8,
   kTwist = 9, kTaper = 10, kBend = 11, kShear = 12,
 };
+enum Live { kDead = 0, kBoxed = 1, kAlways = 2 };
 
 struct Args {
   const float* rays;         // [9, n] ro xyz, rd xyz, t_enter, t_exit, alive0
@@ -56,34 +87,48 @@ struct Args {
   const int* steps;          // [n_steps, kStepRow] fold in schedule order
   const float* step_params;  // [n_steps, 2] op params 0:2
   const float* warps;        // [n_groups * chain_len, kWarpRow]
+  const int* live;           // [tiles, n_prims] kDead, kBoxed or kAlways
+  const float* boxes;        // [n_prims, 6] prim support boxes lo|hi
   float* t_out;              // [n]
   float* hit_out;            // [n]
+  unsigned long long* counts;  // counting build: needed lane-evals, lanes run
   int n_rays, n_prims, n_real, n_steps, n_groups, chain_len;
   int root_is_op, root_reg, adaptive;
   float iso, r_iso, base_step, inv_stretch;
   int max_steps, bisect_steps;
 };
 
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+__host__ __device__ inline int mask_words(const Args& a) {
+  return (a.n_prims + 31) >> 5;
+}
+
+// Shared-memory layout in 4-byte words; every table starts on a 16-byte
+// boundary. Boxes are stored as lo xyz _ | hi xyz _.
 struct Layout {
-  int prims, steps, params, warps, total;
+  int prims, boxes, steps, warps, live, wmask, total;
 };
 
-__host__ __device__ inline Layout make_layout(const Args& a) {
+__host__ __device__ inline Layout make_layout(const Args& a, int n_warps) {
   Layout L{};
   int o = 0;
-  L.prims = o;   o += a.n_prims * kPrimRow;
-  L.steps = o;   o += a.n_steps * kStepRow;
-  L.params = o;  o += a.n_steps * 2;
-  L.warps = o;   o += a.n_groups * a.chain_len * kWarpRow;
+  L.prims = o;  o += a.n_prims * kPrimRow;
+  L.boxes = o;  o += a.n_prims * 8;
+  L.steps = o;  o += a.n_steps * kStepWords;
+  L.warps = o;  o += a.n_groups * a.chain_len * kWarpRow;
+  L.live = o;   o += round4(a.n_prims);
+  L.wmask = o;  o += round4(n_warps * mask_words(a));
   L.total = o;
   return L;
 }
 
 struct Shared {
   const float* prims;
-  const int* steps;
-  const float* params;
+  const float4* boxes;
+  const int4* steps;
   const float* warps;
+  const int* live;
+  unsigned* wmask;  // this warp's live-prim bits
 };
 
 // The inverse deformation of one warp op applied to a point (ops/warp.py
@@ -141,7 +186,9 @@ __device__ void apply_warp(const float* w, float& x, float& y, float& z) {
 }
 
 // Prim fields at one world point, each at its warp group's point; the
-// last group's warped point is cached.
+// last group's warped point is cached. A prim whose bit is clear in the
+// warp's mask is outside its support box: its field is the 0.0 it would
+// have computed.
 struct PrimEval {
   const Args& a;
   const Shared& s;
@@ -149,7 +196,12 @@ struct PrimEval {
   int group = -1;
   float wx = 0.0f, wy = 0.0f, wz = 0.0f;
 
-  __device__ float operator()(int i) {
+  __device__ bool live(int i) const {
+    return (s.wmask[i >> 5] >> (i & 31)) & 1u;
+  }
+
+  // The field of a prim whose bit is set.
+  __device__ float field(int i) {
     const float* p = s.prims + i * kPrimRow;
     const int g = static_cast<int>(p[23]);
     if (g != group) {
@@ -164,6 +216,24 @@ struct PrimEval {
       group = g;
     }
     return prim_field(p, wx, wy, wz);
+  }
+
+  __device__ float operator()(int i) { return live(i) ? field(i) : 0.0f; }
+
+  // Sum over prims lo..hi in index order; culled prims add exactly 0, so
+  // only the set bits are walked.
+  __device__ float sum(int lo, int hi) {
+    float v = 0.0f;
+    for (int c = lo >> 5; c <= hi >> 5; ++c) {
+      unsigned m = s.wmask[c];
+      if (c == lo >> 5) m &= kFull << (lo & 31);
+      if (c == hi >> 5) m &= kFull >> (31 - (hi & 31));
+      while (m) {
+        v += field(32 * c + __ffs(m) - 1);
+        m &= m - 1;
+      }
+    }
+    return v;
   }
 };
 
@@ -201,27 +271,21 @@ __device__ float range_op(PrimEval& pe, int otype, int lo, int hi, float p0,
       for (int i = lo; i <= hi; ++i) v += powf(pe(i), p0);
       return powf(v, p1);
     default:
-      v = 0.0f;
-      for (int i = lo; i <= hi; ++i) v += pe(i);
-      return v;
+      return pe.sum(lo, hi);
   }
 }
 
-// BlobTree field minus iso at a point.
-__device__ float general_field(const Args& a, const Shared& s, float x,
-                               float y, float z) {
+// The op fold at one point.
+__device__ float fold(const Args& a, const Shared& s, float x, float y,
+                      float z) {
   PrimEval pe{a, s, x, y, z};
-  if (!a.root_is_op) {
-    float f = 0.0f;
-    for (int i = 0; i < a.n_real; ++i) f += pe(i);
-    return f - a.iso;
-  }
+  if (!a.root_is_op) return pe.sum(0, a.n_real - 1) - a.iso;
   float regs[kMaxRegs];
   for (int k = 0; k < a.n_steps; ++k) {
-    const int* st = s.steps + k * kStepRow;
-    const int otype = st[0], dst = st[1], lk = st[2], li = st[3], rk = st[4],
-              ri = st[5];
-    const float p0 = s.params[2 * k], p1 = s.params[2 * k + 1];
+    const int4 s0 = s.steps[2 * k], s1 = s.steps[2 * k + 1];
+    const int otype = s0.x, dst = s0.y, lk = s0.z, li = s0.w, rk = s1.x,
+              ri = s1.y;
+    const float p0 = __int_as_float(s1.z), p1 = __int_as_float(s1.w);
     float v;
     if (lk == kSrcRange) {
       v = range_op(pe, otype, li, ri, p0, p1);
@@ -236,49 +300,110 @@ __device__ float general_field(const Args& a, const Shared& s, float x,
   return regs[a.root_reg] - a.iso;
 }
 
-__global__ void trace_general_kernel(Args a) {
-  extern __shared__ float smem[];
-  const Layout L = make_layout(a);
+// BlobTree field minus iso at a point, for the lanes with `need` set (the
+// others get no value). Every lane of the warp must call it.
+template <bool kCount>
+__device__ float general_field(const Args& a, const Shared& s, float x,
+                               float y, float z, bool need) {
+  const unsigned needed = __ballot_sync(kFull, need);
+  if (needed == 0) return 0.0f;
+  const int lane = threadIdx.x & 31;
+  if (kCount && lane == 0) {
+    atomicAdd(a.counts, static_cast<unsigned long long>(__popc(needed)));
+    atomicAdd(a.counts + 1, 32ull);
+  }
+  // This eval's live prims: always-live ones, and boxed ones whose box
+  // meets the hull of the needed lanes' points.
+  const Hull h = warp_hull(need, x, y, z);
+  for (int c = 0; c < mask_words(a); ++c) {
+    const int i = 32 * c + lane;
+    const int flag = i < a.n_prims ? s.live[i] : kDead;
+    const bool ok =
+        flag == kAlways ||
+        (flag == kBoxed && hull_meets(h, s.boxes[2 * i], s.boxes[2 * i + 1]));
+    const unsigned m = __ballot_sync(kFull, ok);
+    if (lane == 0) s.wmask[c] = m;
+  }
+  __syncwarp();
+  const float f = need ? fold(a, s, x, y, z) : 0.0f;
+  __syncwarp();  // the next eval rewrites the mask
+  return f;
+}
+
+template <bool kCount>
+__global__ void __launch_bounds__(kMaxThreads, kMinCtas)
+    trace_general_kernel(Args a) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   const int tile = blockIdx.x;
   const int tid = threadIdx.x;
   const int T = blockDim.x;
-  for (int i = tid; i < a.n_prims * kPrimRow; i += T) smem[L.prims + i] = a.prims[i];
-  int* steps = reinterpret_cast<int*>(smem + L.steps);
-  for (int i = tid; i < a.n_steps * kStepRow; i += T) steps[i] = a.steps[i];
-  for (int i = tid; i < a.n_steps * 2; i += T) smem[L.params + i] = a.step_params[i];
-  const int nw = a.n_groups * a.chain_len * kWarpRow;
-  for (int i = tid; i < nw; i += T) smem[L.warps + i] = a.warps[i];
-  const Shared s{smem + L.prims, steps, smem + L.params, smem + L.warps};
-  __syncthreads();
-
+  // A tile of 256 rays is a 16x16 pixel block in row-major order: warp w
+  // takes the 8x4 patch at column 8 (w & 1), row 4 (w >> 1).
+  int slot = tid;
+  if (T == 256) {
+    const int w = tid >> 5, l = tid & 31;
+    slot = ((w >> 1) * 4 + (l >> 3)) * 16 + (w & 1) * 8 + (l & 7);
+  }
   const int n = a.n_rays;
-  const int g = tile * T + tid;
-  const float ox = a.rays[g], oy = a.rays[n + g], oz = a.rays[2 * n + g];
-  const float dx = a.rays[3 * n + g], dy = a.rays[4 * n + g],
-              dz = a.rays[5 * n + g];
-  const float t_enter = a.rays[6 * n + g];
+  const int g = tile * T + slot;
   const float t_exit = a.rays[7 * n + g];
   const bool alive0 = a.rays[8 * n + g] > 0.0f;
 
-  // A tile with no live ray skips the march: every lane misses.
+  // A tile with no live ray skips the copy and the march: every lane
+  // misses.
   if (!__syncthreads_or(alive0)) {
     a.t_out[g] = t_exit;
     a.hit_out[g] = 0.0f;
     return;
   }
 
+  const Layout L = make_layout(a, T >> 5);
+  {
+    const float4* src = reinterpret_cast<const float4*>(a.prims);
+    for (int i = tid; i < a.n_prims * (kPrimRow / 4); i += T) smem4[i] = src[i];
+  }
+  for (int i = tid; i < a.n_prims * 8; i += T) {
+    const int b = i >> 3, k = i & 7;
+    smem[L.boxes + i] =
+        (k & 3) == 3 ? 0.0f : a.boxes[6 * b + (k >> 2) * 3 + (k & 3)];
+  }
+  int* steps = reinterpret_cast<int*>(smem + L.steps);
+  for (int i = tid; i < a.n_steps * kStepWords; i += T) {
+    const int k = i >> 3, j = i & 7;
+    steps[i] = j < kStepRow
+                   ? a.steps[k * kStepRow + j]
+                   : __float_as_int(a.step_params[2 * k + j - kStepRow]);
+  }
+  const int nw = a.n_groups * a.chain_len * kWarpRow;
+  for (int i = tid; i < nw; i += T) smem[L.warps + i] = a.warps[i];
+  int* live = reinterpret_cast<int*>(smem + L.live);
+  for (int i = tid; i < a.n_prims; i += T) live[i] = a.live[tile * a.n_prims + i];
+  const Shared s{smem + L.prims,
+                 reinterpret_cast<const float4*>(smem + L.boxes),
+                 reinterpret_cast<const int4*>(steps), smem + L.warps, live,
+                 reinterpret_cast<unsigned*>(smem + L.wmask) +
+                     (tid >> 5) * mask_words(a)};
+  __syncthreads();
+
+  const float ox = a.rays[g], oy = a.rays[n + g], oz = a.rays[2 * n + g];
+  const float dx = a.rays[3 * n + g], dy = a.rays[4 * n + g],
+              dz = a.rays[5 * n + g];
+  const float t_enter = a.rays[6 * n + g];
+
   auto eval = [&](float t, bool need) {
-    return need ? general_field(a, s, ox + t * dx, oy + t * dy, oz + t * dz)
-                : 0.0f;
+    return general_field<kCount>(a, s, ox + t * dx, oy + t * dy, oz + t * dz,
+                                 need);
   };
   const float f0 = eval(t_enter, alive0);
   float t = t_enter, f = f0, t_prev = t_enter, f_prev = f0;
   bool found = alive0 && f0 >= 0.0f;
   bool alive = alive0 && f0 < 0.0f;
 
-  // Two masked sub-steps per loop test; `it` counts sub-steps.
+  // Two masked sub-steps per loop test; `it` counts sub-steps. The test is
+  // the warp's own.
   int it = 0;
-  while (it < a.max_steps && __syncthreads_or(alive)) {
+  while (it < a.max_steps && __any_sync(kFull, alive)) {
     for (int k = 0; k < 2; ++k) {
       float dt = a.base_step;
       if (a.adaptive) {
@@ -323,13 +448,28 @@ __global__ void trace_general_kernel(Args a) {
   a.hit_out[g] = found ? 1.0f : 0.0f;
 }
 
+template <bool kCount>
+int launch(const Args& a, int tile, void* stream) {
+  const size_t bytes = sizeof(float) * make_layout(a, tile >> 5).total;
+  cudaError_t err = cudaFuncSetAttribute(
+      trace_general_kernel<kCount>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  trace_general_kernel<kCount>
+      <<<a.n_rays / tile, tile, bytes, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// K3: general trace. Returns a cudaError_t code (0 on success).
+// K3: general trace. Returns a cudaError_t code (0 on success). `counts`
+// is null, or two zeroed 64-bit counters for the counting build: needed
+// lane-evals, and 32 for every warp-eval that ran.
 extern "C" int fb_trace_general(
     const float* rays, const float* prims, const int* steps,
-    const float* step_params, const float* warps, float* t_out,
-    float* hit_out, int n_rays, int tile, int n_prims, int n_real,
+    const float* step_params, const float* warps, const int* live,
+    const float* boxes, float* t_out, float* hit_out,
+    unsigned long long* counts, int n_rays, int tile, int n_prims, int n_real,
     int n_steps, int n_groups, int chain_len, int root_is_op, int root_reg,
     int adaptive, float iso, float r_iso, float base_step, float inv_stretch,
     int max_steps, int bisect_steps, void* stream) {
@@ -339,8 +479,11 @@ extern "C" int fb_trace_general(
   a.steps = steps;
   a.step_params = step_params;
   a.warps = warps;
+  a.live = live;
+  a.boxes = boxes;
   a.t_out = t_out;
   a.hit_out = hit_out;
+  a.counts = counts;
   a.n_rays = n_rays;
   a.n_prims = n_prims;
   a.n_real = n_real;
@@ -357,12 +500,6 @@ extern "C" int fb_trace_general(
   a.max_steps = max_steps;
   a.bisect_steps = bisect_steps;
   if (n_rays == 0) return 0;
-  const size_t bytes = sizeof(float) * make_layout(a).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      trace_general_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  trace_general_kernel<<<n_rays / tile, tile, bytes,
-                         static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  if (counts != nullptr) return launch<true>(a, tile, stream);
+  return launch<false>(a, tile, stream);
 }

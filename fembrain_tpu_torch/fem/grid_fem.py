@@ -16,6 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import default_device
 from ..mesh import tables as T
 from ..mesh.polygonize import GridSpec, TetMesh
 from .integrator import (
@@ -521,10 +522,12 @@ def build_grid_fem(
     nu: float = DEFAULT_NU,
     rho: float = DEFAULT_RHO,
     n_levels: int = 4,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> GridFem:
     """Host-side constructor. cell_mask [CX,CY,CZ] bool (TetMesh.cell_mask),
-    fixed [X,Y,Z] bool grid-vertex anchors; tensors land on `device`."""
+    fixed [X,Y,Z] bool grid-vertex anchors; tensors land on `device` (the
+    card when None)."""
+    device = default_device() if device is None else device
     cell_mask = np.asarray(cell_mask, bool)
     fixed = np.asarray(fixed, bool)
     dims = tuple(d + 1 for d in cell_mask.shape)
@@ -622,7 +625,7 @@ def grid_fem_from_tetmesh(
     nu: float = DEFAULT_NU,
     rho: float = DEFAULT_RHO,
     n_levels: int = 4,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> GridFem:
     """Build from an extracted TetMesh; fixed_nodes are tet-node ids (or a
     bool mask over nodes), translated onto the grid."""

@@ -372,13 +372,15 @@ def field(scene: Scene, points: torch.Tensor) -> torch.Tensor:
 
 
 def field_rows(scene: Scene, x: torch.Tensor, y: torch.Tensor,
-               z: torch.Tensor) -> torch.Tensor:
+               z: torch.Tensor,
+               prim_live: torch.Tensor | None = None) -> torch.Tensor:
     """Per-point field evaluation on component tensors x, y, z [N] -> [N]
     (fembrain_tpu/ops/field.py `field_rows`): every warp group's chain is
     applied root-first to the components, prims take their group's local
     coordinates, and the unrolled op fold follows the schedule. The plain
     version of the general tile-trace kernel's field evaluator
-    (csrc/trace_general.cu)."""
+    (csrc/trace_general.cu). `prim_live` [N, P] bool masks prim fields to
+    0 before the fold, as the kernel's culled prims contribute."""
     if not supports_rows_fast_path(scene):
         raise NotImplementedError(
             f"scan fold for {len(scene.schedule)} ops (> {UNROLL_LIMIT}) "
@@ -416,6 +418,8 @@ def field_rows(scene: Scene, x: torch.Tensor, y: torch.Tensor,
     res_c = tuple(scene.prim_res[:, i][None] for i in range(4))
     pf = rows_prim_fields(vt, pos_c, dir_c, res_c, scene.prim_type[None],
                           scene.prim_types_present)           # [N, P]
+    if prim_live is not None:
+        pf = torch.where(prim_live, pf, 0.0)
     if not scene.root_is_op:
         return torch.sum(pf[:, : scene.n_prims], -1)
     return _fold_unrolled(scene, pf)

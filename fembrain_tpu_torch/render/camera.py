@@ -8,6 +8,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import default_device
+
 # Reference defaults (src/settings.h:19-23).
 DEFAULT_FOVY_DEG = 45.0
 DEFAULT_ZNEAR = 0.01
@@ -26,7 +28,10 @@ class Camera:
     @classmethod
     def make(cls, eye, target=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0),
              fovy_deg=DEFAULT_FOVY_DEG,
-             device: torch.device | str = "cpu") -> "Camera":
+             device: torch.device | str | None = None) -> "Camera":
+        """Tensors land on `device` (the card when None)."""
+        device = default_device() if device is None else device
+
         def f32(v):
             return torch.as_tensor(np.asarray(v, np.float32), device=device)
 
@@ -36,7 +41,7 @@ class Camera:
     @classmethod
     def orbit(cls, roll_deg: float, tilt_deg: float, zoom: float,
               target=(0.0, 0.0, 0.0),
-              device: torch.device | str = "cpu") -> "Camera":
+              device: torch.device | str | None = None) -> "Camera":
         """Arcball pose (reference ArcBallCamera roll/tilt/zoom orbit)."""
         r = np.deg2rad(roll_deg)
         t = np.deg2rad(tilt_deg)

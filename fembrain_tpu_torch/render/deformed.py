@@ -21,6 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import default_device
 from ..blob.scene import Scene
 from ..ops.field import field, supports_rows_fast_path
 from .sphere_trace import (
@@ -140,7 +141,7 @@ def build_disp_interp(nodes, n_centers: int | None = None, fixed=None,
                       kernel: str = "biharmonic",
                       sigma_fill: float = WENDLAND_SIGMA_FILL,
                       extra_centers=None, sigma: float | None = None,
-                      device: torch.device | str = "cpu") -> DispInterp:
+                      device: torch.device | str | None = None) -> DispInterp:
     """Farthest-point-sample `n_centers` FEM nodes (None: adaptive_centers)
     and factor the kernel system (float64 host math, once per mesh
     topology). `fixed` is accepted as in the reference and not read:
@@ -148,8 +149,10 @@ def build_disp_interp(nodes, n_centers: int | None = None, fixed=None,
     extra_centers are node ids appended after the pick. Wendland centers
     are Morton-ordered so the tracer's center blocks are spatially tight;
     the support is sigma = sigma_fill * max(fill distance, median center
-    spacing) unless `sigma` is given."""
+    spacing) unless `sigma` is given. Tensors land on `device` (the card
+    when None)."""
     del fixed
+    device = default_device() if device is None else device
     nodes = np.asarray(nodes, np.float64)
     if n_centers is None:
         n_centers = adaptive_centers(len(nodes))

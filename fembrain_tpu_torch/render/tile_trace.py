@@ -17,7 +17,8 @@ exit. Two kernels:
 * K3, the general kernel (csrc/trace_general.cu), marches any BlobTree
   of at most UNROLL_LIMIT ops: warp chains, the typed prim distances and
   the op fold along the schedule, fixed steps where the field is not
-  monotone.
+  monotone; prims under no warp are skipped where the tile's ray hull
+  misses their support box (`GeneralInputs.live`).
 
 On a CUDA tensor `run_tiles` launches the hand-written kernel (built by
 fembrain_tpu_torch.native); on a CPU tensor it runs the plain version
@@ -25,7 +26,10 @@ fembrain_tpu_torch.native); on a CPU tensor it runs the plain version
 `trace_tiles_biharmonic_plain`, `trace_tiles_general_plain`), which
 computes the same march with the same tile partition, step rule,
 iteration and refresh schedule, bisection and secant, vectorised over
-all rays at once.
+all rays at once. Given a `WorkCount`, a plain version also counts the
+work its inputs need (the field evaluations whose value the march uses,
+the prims in reach of each, the centers of each pull-back), from which
+`WorkCount.flops` gives the kernels' fp32 lower bound.
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ from ..ops.field import (
     field, field_rows, local_coords, point_merge_target, rows_prim_fields,
     supports_rows_fast_path,
 )
+from ..ops.warp import warp_components
 from .sphere_trace import (
     TraceParams, _ray_box, newton_nudge, prim_interval,
     support_radius_bound, trace,
@@ -55,6 +60,95 @@ PRIM_ROW = 24     # floats per packed prim row: m[3][4] pos dir res type aux
 STEP_ROW = 6      # ints per general op step: type dst lkind lidx rkind ridx
 WARP_ROW = 8      # floats per warp wire: type axis_a axis_b pad params[4]
 MAX_REGS = 32     # op-value registers per thread in the general kernel
+MAX_TILE = 256    # threads per CTA the kernels are compiled for
+# GeneralInputs.live: the prim adds exactly 0 on this tile's rays; it is
+# evaluated where its support box meets the evaluation points; it is
+# always evaluated (it sits under a warp chain).
+LIVE_DEAD, LIVE_BOXED, LIVE_ALWAYS = 0, 1, 2
+
+# Flops of the plain arithmetic, an FMA as 2, a sqrt or divide as 1, min,
+# max and abs as 1, compares and selects as 0 (csrc/prim_field.cuh,
+# csrc/trace_additive.cu). One prim: 18 for the world->local transform
+# (three rows of 3 mul + 3 add), 4 for the Wyvill kernel, plus the
+# skeleton distance of its type: point 3 sub + dot 5; line 3 + 5 + 3 + 5
+# + safe_div 2 + 9 + 5; cylinder 3 + 5 + 5 + 2 + max, sqrt, sub, max 4 +
+# sub, max 2 + 3; disc 3 + 5 + 6 + 5 + 5 + rsqrt 1 + 9 + 5 + 3 (ring: + 2
+# for 3); cube 12 + 6; triangle 129 (six edge dots of 8, three areas of
+# 3, ...); the quadric point 3 + 5 + its polynomial 5, with no Wyvill.
+_LOCAL, _WYVILL = 18, 4
+PRIM_FLOPS = {
+    int(PrimType.POINT): _LOCAL + 8 + _WYVILL,
+    int(PrimType.LINE): _LOCAL + 32 + _WYVILL,
+    int(PrimType.CYLINDER): _LOCAL + 24 + _WYVILL,
+    int(PrimType.DISC): _LOCAL + 42 + _WYVILL,
+    int(PrimType.RING): _LOCAL + 41 + _WYVILL,
+    int(PrimType.CUBE): _LOCAL + 18 + _WYVILL,
+    int(PrimType.TRIANGLE): _LOCAL + 129 + _WYVILL,
+    int(PrimType.QUADRIC_POINT): _LOCAL + 13,
+}
+# One center of one biharmonic pull-back iteration: 3 sub, |.|^2 5, max 1,
+# sqrt 1, three FMAs 6. One Wendland center: 3 sub, |.|^2 5, sqrt 1, scale
+# and min 2, 1 - t 1, square 1, o2 o2 (4 t + 1) 4, three FMAs 6.
+BIHARMONIC_CENTER_FLOPS = 16
+WENDLAND_CENTER_FLOPS = 23
+# One pull-back iteration besides its centers: the affine tail (three rows
+# of 3 mul + 3 add) and x = y - (tail + sum), 6.
+PULL_TAIL_FLOPS = 24
+# Bytes a launch must move: of every ray alive0 and t_exit read, t and
+# hit written; of a ray that starts alive the other seven rows as well.
+RAY_BYTES_DEAD = 16
+RAY_BYTES_ALIVE = 28
+
+
+def ray_bytes(rays: torch.Tensor) -> int:
+    """Least bytes one launch on `rays` [9, n] reads and writes."""
+    return (RAY_BYTES_DEAD * rays.shape[1]
+            + RAY_BYTES_ALIVE * int((rays[8] > 0).sum()))
+
+
+@dataclasses.dataclass
+class WorkCount:
+    """What one launch's inputs need, counted by the plain version. A
+    needed lane-eval is one field evaluation whose value the march uses:
+    the entry eval of a ray that starts alive, a march sub-step of a ray
+    still alive, a bisection eval of a ray that found a root."""
+
+    lane_evals: int = 0
+    # prim type -> (needed lane-eval, prim whose support box holds the
+    # evaluation point) pairs
+    prim_evals: dict = dataclasses.field(default_factory=dict)
+    pull_iters: int = 0             # pull-back iterations of needed lanes
+    biharmonic_center_evals: int = 0  # pull_iters x M
+    wendland_center_evals: int = 0  # centers within sigma of the estimate
+
+    def add_prims(self, types: torch.Tensor, counts: torch.Tensor) -> None:
+        for t, c in zip(types.tolist(), counts.tolist()):
+            if c:
+                self.prim_evals[int(t)] = self.prim_evals.get(int(t), 0) + c
+
+    @property
+    def prims_in_reach(self) -> int:
+        return sum(self.prim_evals.values())
+
+    @property
+    def flops(self) -> int:
+        return (
+            sum(c * PRIM_FLOPS.get(t, 0) for t, c in self.prim_evals.items())
+            + self.biharmonic_center_evals * BIHARMONIC_CENTER_FLOPS
+            + self.wendland_center_evals * WENDLAND_CENTER_FLOPS
+            + self.pull_iters * PULL_TAIL_FLOPS
+        )
+
+
+def _count_in_boxes(count, boxes, types, px, py, pz, need):
+    """Add, per prim type, the (needed lane, prim) pairs whose box [G, 6]
+    holds the lane's point."""
+    inside = need[:, None]
+    for i, p in enumerate((px, py, pz)):
+        inside = (inside & (p[:, None] >= boxes[None, :, i])
+                  & (p[:, None] <= boxes[None, :, 3 + i]))
+    count.add_prims(types, inside.sum(0))
+
 
 # Kernel launches made through `run_tiles`, per kernel and mode.
 LAUNCHES = {"trace_additive_rest": 0, "trace_additive_wendland": 0,
@@ -125,6 +219,8 @@ class TileInputs:
     boxes: torch.Tensor      # [nb, 6] block support boxes lo|hi
     tile_rows: torch.Tensor  # [tiles, 4] inv_stretch, shrink, slack, L
     prims: torch.Tensor      # [P, PRIM_ROW] packed prim rows
+    prim_boxes: torch.Tensor  # [P, 6] prim support boxes lo|hi, row order
+    prim_types: torch.Tensor  # [P] int64 each row's own type (work counts)
     block_types: tuple       # per block: effective prim types present
     tile: int
     dyn_cull: bool           # per-eval hull cull (scenes with > 4 blocks)
@@ -146,6 +242,8 @@ class GeneralInputs:
     steps: torch.Tensor        # [S, STEP_ROW] int32 op fold in schedule order
     step_params: torch.Tensor  # [S, 2] op params 0:2 (Ricci p, 1/p)
     warps: torch.Tensor        # [groups * chain_len, WARP_ROW] root-first
+    live: torch.Tensor         # [tiles, P] int32 LIVE_* flag per tile and prim
+    boxes: torch.Tensor        # [P, 6] prim support boxes lo|hi
     scene: Scene               # what the plain version evaluates
     tile: int
     n_real: int                # real prims (the sum when the root is a prim)
@@ -237,7 +335,9 @@ def _additive_layout(scene: Scene):
         [torch.where(to_cyl[:, None], 0.0, res[:, :2]), res[:, 2:]], 1
     )
     prims = _prim_rows(pm, pos, dirv, res, eff_type, torch.zeros_like(eff_type))
-    return prims, blk_lo, blk_hi, blk_stretch, tuple(eff_types)
+    prim_boxes = torch.cat([scene.prim_bb_lo[perm], scene.prim_bb_hi[perm]], 1)
+    return (prims, prim_boxes, ptype.to(torch.int64), blk_lo, blk_hi,
+            blk_stretch, tuple(eff_types))
 
 
 def _tile_hulls(ro, rd, t_enter, t_exit, alive, tiles):
@@ -307,7 +407,8 @@ def prepare_tiles(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
     t_enter, t_exit, alive0 = prim_interval(scene, ro, rd,
                                             margin=0.05 + max_disp)
 
-    prims, blk_lo, blk_hi, blk_stretch, eff_types = _additive_layout(scene)
+    (prims, prim_boxes, prim_types, blk_lo, blk_hi, blk_stretch,
+     eff_types) = _additive_layout(scene)
     # The deformed trace derives its base step from the max_disp-inflated
     # bbox and tests deformed-space hulls against inflated block boxes.
     lo = scene.bbox_lo - max_disp - 0.05
@@ -384,6 +485,8 @@ def prepare_tiles(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
         boxes=torch.cat([blk_lo, blk_hi], -1).contiguous(),
         tile_rows=tile_rows.contiguous(),
         prims=prims,
+        prim_boxes=prim_boxes.contiguous(),
+        prim_types=prim_types,
         block_types=eff_types,
         tile=tile,
         dyn_cull=dyn_cull,
@@ -450,12 +553,32 @@ def prepare_general(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
     prims = _prim_rows(scene.prim_mtx, scene.prim_pos, scene.prim_dir,
                        scene.prim_res, scene.prim_type, group)
     base_step = torch.sqrt(torch.sum((hi - lo) ** 2)) * params.step_frac
+
+    # Per-tile prim flags. A prim's field is exactly 0 outside its support
+    # box whatever op consumes it, and every point the march evaluates for
+    # a live ray lies in the tile's segment hull: a prim under no warp is
+    # dead on a tile whose hull misses its box. Warped prims see moved
+    # points and stay always live; padding rows are dead.
+    tiles = ro.shape[0] // tile
+    hull_lo, hull_hi = _tile_hulls(ro, rd, t_enter, t_exit, alive0, tiles)
+    boxed = torch.zeros(P, dtype=torch.bool, device=dev)
+    for chain, prim_idx in scene.warp_groups:
+        if not chain and prim_idx:
+            boxed[list(prim_idx)] = True
+    real = torch.arange(P, device=dev) < scene.n_prims
+    live = torch.where(
+        boxed[None],
+        _hull_box_live(hull_lo, hull_hi, scene.prim_bb_lo, scene.prim_bb_hi),
+        LIVE_ALWAYS)
+    live = torch.where(real[None], live, LIVE_DEAD).to(torch.int32)
     return GeneralInputs(
         rays=_ray_rows(ro, rd, t_enter, t_exit, alive0),
         prims=prims,
         steps=torch.tensor(steps, dtype=torch.int32, device=dev),
         step_params=step_params.float().contiguous(),
         warps=warps.contiguous(),
+        live=live.contiguous(),
+        boxes=torch.cat([scene.prim_bb_lo, scene.prim_bb_hi], 1).contiguous(),
         scene=scene,
         tile=tile,
         n_real=scene.n_prims,
@@ -494,19 +617,30 @@ def _check(name, t, dtype, shape):
 
 
 def _check_tiling(n, tile):
-    if tile % 32 or not 32 <= tile <= 1024 or n % tile:
+    if tile % 32 or not 32 <= tile <= MAX_TILE or n % tile:
         raise ValueError(f"tile {tile} must be a multiple of 32 in "
-                         f"[32, 1024] dividing {n} rays")
+                         f"[32, {MAX_TILE}] dividing {n} rays")
 
 
 def _ptr(t):
     return _PTR(t.data_ptr())
 
 
-def trace_additive_cuda(inp: TileInputs):
+def _counts_ptr(lane_counts):
+    """The counting build's two counters (needed lane-evals, lanes of the
+    warp-evals that ran), or a null pointer for the shipped kernel."""
+    if lane_counts is None:
+        return _PTR(None)
+    _check("lane_counts", lane_counts, torch.int64, (2,))
+    return _ptr(lane_counts)
+
+
+def trace_additive_cuda(inp: TileInputs, lane_counts=None):
     """Launch the CUDA additive tile-trace kernel (K1 rest, K2 Wendland or
     K4 biharmonic) on the current stream: (t [n], hit [n]) with hit 0/1 as
-    float.
+    float. With `lane_counts` (two int64 on the card) the kernel's counting
+    build runs instead and adds the needed lane-evals and 32 per warp-eval
+    that ran.
 
     Replaces the Pallas TPU kernel fembrain_tpu/render/pallas_trace.py
     `_trace_kernel_additive` (rest, Wendland and biharmonic modes)."""
@@ -545,7 +679,7 @@ def trace_additive_cuda(inp: TileInputs):
     stream = torch.cuda.current_stream(inp.rays.device).cuda_stream
     common = (
         _ptr(inp.rays), _ptr(inp.live), _ptr(inp.boxes), _ptr(inp.tile_rows),
-        _ptr(inp.prims), _ptr(t_out), _ptr(hit_out),
+        _ptr(inp.prims), _ptr(t_out), _ptr(hit_out), _counts_ptr(lane_counts),
         _I32(n), _I32(inp.tile), _I32(P), _I32(nb), _I32(int(inp.dyn_cull)),
         _F32(inp.iso), _F32(inp.r_iso), _F32(inp.base_step),
         _I32(inp.max_steps), _I32(inp.bisect_steps),
@@ -573,9 +707,10 @@ def trace_additive_cuda(inp: TileInputs):
     return t_out, hit_out
 
 
-def trace_general_cuda(inp: GeneralInputs):
+def trace_general_cuda(inp: GeneralInputs, lane_counts=None):
     """Launch the CUDA general tile-trace kernel (K3) on the current
-    stream: (t [n], hit [n]) with hit 0/1 as float.
+    stream: (t [n], hit [n]) with hit 0/1 as float; `lane_counts` as in
+    `trace_additive_cuda`.
 
     Replaces the Pallas TPU kernel fembrain_tpu/render/pallas_trace.py
     `_trace_kernel` with fembrain_tpu/ops/field.py `field_rows`."""
@@ -591,6 +726,8 @@ def trace_general_cuda(inp: GeneralInputs):
     _check("steps", inp.steps, torch.int32, (S, STEP_ROW))
     _check("step_params", inp.step_params, f32, (S, 2))
     _check("warps", inp.warps, f32, (inp.n_groups * inp.chain_len, WARP_ROW))
+    _check("live", inp.live, torch.int32, (n // inp.tile, P))
+    _check("boxes", inp.boxes, f32, (P, 6))
     if inp.n_regs > MAX_REGS:
         raise ValueError(f"the fold needs {inp.n_regs} registers, the kernel "
                          f"has {MAX_REGS}")
@@ -600,7 +737,9 @@ def trace_general_cuda(inp: GeneralInputs):
     stream = torch.cuda.current_stream(inp.rays.device).cuda_stream
     rc = lib.fb_trace_general(
         _ptr(inp.rays), _ptr(inp.prims), _ptr(inp.steps),
-        _ptr(inp.step_params), _ptr(inp.warps), _ptr(t_out), _ptr(hit_out),
+        _ptr(inp.step_params), _ptr(inp.warps), _ptr(inp.live),
+        _ptr(inp.boxes), _ptr(t_out), _ptr(hit_out),
+        _counts_ptr(lane_counts),
         _I32(n), _I32(inp.tile), _I32(P), _I32(inp.n_real), _I32(S),
         _I32(inp.n_groups), _I32(inp.chain_len), _I32(int(inp.root_is_op)),
         _I32(inp.root_reg), _I32(int(inp.adaptive)),
@@ -618,20 +757,28 @@ def trace_general_cuda(inp: GeneralInputs):
 # ---------------------------------------------------- the plain versions
 
 def _march_rows(rays, tile, max_steps, bisect_steps, eval_c, carry, step_dt,
-                subs):
+                subs, count=None):
     """The tile march in plain torch, all rays at once: a tile's loop state
     advances only while the tile itself would still be looping, as in the
-    kernels. eval_c(t, carry, refresh, upd) -> (field - iso, carry);
-    step_dt(f, t, carry) -> the step; `subs` lists each loop iteration's
-    sub-steps by their refresh flag (`it` counts sub-steps, the loop test
-    runs once per iteration). Returns (t, hit as float)."""
+    kernels. eval_c(t, carry, refresh, upd, need) -> (field - iso, carry),
+    `need` marking the lanes whose value the march uses (eval_c reads it
+    only to count); step_dt(f, t, carry) -> the step; `subs` lists each
+    loop iteration's sub-steps by their refresh flag (`it` counts
+    sub-steps, the loop test runs once per iteration). `count`, a
+    WorkCount, gets the needed lane-evals. Returns (t, hit as float)."""
     rox, roy, roz, rdx, rdy, rdz, t_enter, t_exit, alive0f = rays
     n = rox.shape[0]
     tiles = n // tile
     alive0 = alive0f > 0.0
     tile_of = torch.arange(n, device=rox.device) // tile
     everyone = torch.ones_like(alive0)
-    f0, carry = eval_c(t_enter, carry, True, everyone)
+
+    def counted(need):
+        if count is not None:
+            count.lane_evals += int(need.sum())
+        return need
+
+    f0, carry = eval_c(t_enter, carry, True, everyone, counted(alive0))
     t, f, t_prev, f_prev = t_enter, f0, t_enter, f0
     found = alive0 & (f0 >= 0.0)
     alive = alive0 & (f0 < 0.0)
@@ -645,8 +792,8 @@ def _march_rows(rays, tile, max_steps, bisect_steps, eval_c, carry, step_dt,
         run = running[tile_of]
         for refresh in subs:
             t_new = torch.minimum(t + step_dt(f, t, carry), t_exit)
-            f_new, carry = eval_c(t_new, carry, refresh, run)
             m = alive & run
+            f_new, carry = eval_c(t_new, carry, refresh, run, counted(m))
             crossed = m & (f_new >= 0.0)
             done = m & (t_new >= t_exit) & (f_new < 0.0)
             t_prev = torch.where(m, t, t_prev)
@@ -664,7 +811,7 @@ def _march_rows(rays, tile, max_steps, bisect_steps, eval_c, carry, step_dt,
     a, b, fa, fb = t_prev, t, f_prev, f
     for i in range(bisect_steps):
         mid = 0.5 * (a + b)
-        fm, carry = eval_c(mid, carry, i == 0, everyone)
+        fm, carry = eval_c(mid, carry, i == 0, everyone, counted(found))
         neg = fm < 0.0
         a, b = torch.where(neg, mid, a), torch.where(neg, b, mid)
         fa, fb = torch.where(neg, fm, fa), torch.where(neg, fb, fm)
@@ -675,10 +822,11 @@ def _march_rows(rays, tile, max_steps, bisect_steps, eval_c, carry, step_dt,
     return torch.where(found, t_root, t_exit), found.to(torch.float32)
 
 
-def _march_plain(inp: TileInputs):
+def _march_plain(inp: TileInputs, count: WorkCount | None = None):
     """The additive march (K1, K2, K4). Blocks are masked by the static
     tile flags only: the per-eval hull cull is exact for the lanes whose
-    values are used (compact support), so it is left out."""
+    values are used (compact support), so it is left out. `count` gets
+    the work these inputs need; the results do not depend on it."""
     rox, roy, roz, rdx, rdy, rdz, t_enter = inp.rays[:7]
     n = rox.shape[0]
     tile_of = torch.arange(n, device=rox.device) // inp.tile
@@ -691,16 +839,24 @@ def _march_plain(inp: TileInputs):
             continue
         rows = inp.prims[b * PRIM_BLOCK : (b + 1) * PRIM_BLOCK]
         blocks.append((
-            b, rows[:, :12].reshape(-1, 3, 4)[None],
+            b, inp.prim_boxes[b * PRIM_BLOCK : (b + 1) * PRIM_BLOCK],
+            inp.prim_types[b * PRIM_BLOCK : (b + 1) * PRIM_BLOCK],
+            rows[:, :12].reshape(-1, 3, 4)[None],
             tuple(rows[:, 12 + i][None] for i in range(3)),
             tuple(rows[:, 15 + i][None] for i in range(3)),
             tuple(rows[:, 18 + i][None] for i in range(4)),
             rows[:, 22].to(torch.int64)[None], types,
         ))
 
-    def field_rest(px, py, pz):
+    def field_rest(px, py, pz, need):
         f = torch.zeros_like(px)
-        for b, mtx, pos_c, dir_c, res_c, type_row, types in blocks:
+        for (b, boxes, own_types, mtx, pos_c, dir_c, res_c, type_row,
+             types) in blocks:
+            if count is not None:
+                # A point routed through a line or cylinder branch counts
+                # as the point it is: the work is the function's, not the
+                # layout's.
+                _count_in_boxes(count, boxes, own_types, px, py, pz, need)
             vt = local_coords(px[:, None], py[:, None], pz[:, None], mtx)
             pf = rows_prim_fields(vt, pos_c, dir_c, res_c, type_row, types)
             f = f + torch.where(live[:, b], pf.sum(-1), 0.0)
@@ -715,7 +871,9 @@ def _march_plain(inp: TileInputs):
         n_cb = w.centers.shape[0] // CEN_BLOCK
         wa = w.waff
 
-        def pull(xx, yy, zz, px, py, pz):
+        def pull(xx, yy, zz, px, py, pz, need):
+            if count is not None:
+                count.pull_iters += int(need.sum())
             u = [wa[i, 0] + wa[i, 1] * xx + wa[i, 2] * yy + wa[i, 3] * zz
                  for i in range(3)]
             for cb in range(n_cb):
@@ -726,6 +884,9 @@ def _march_plain(inp: TileInputs):
                 dz = zz[:, None] - c[None, :, 2]
                 d = torch.sqrt(dx * dx + dy * dy + dz * dz)
                 tt = torch.clamp(d * w.inv_sigma, max=1.0)
+                if count is not None:
+                    count.wendland_center_evals += int(
+                        ((tt < 1.0) & need[:, None]).sum())
                 omt = 1.0 - tt
                 o2 = omt * omt
                 ph = o2 * o2 * (4.0 * tt + 1.0)
@@ -734,13 +895,13 @@ def _march_plain(inp: TileInputs):
                     u[i] = u[i] + torch.where(clive[:, cb], s, 0.0)
             return px - u[0], py - u[1], pz - u[2]
 
-        def eval_c(t, carry, refresh, upd):
+        def eval_c(t, carry, refresh, upd, need):
             px, py, pz = point(t)
             if refresh:
                 xr, yr, zr, vx, vy, vz, tr = carry
                 adv = t - tr
                 x2, y2, z2 = pull(xr + adv * vx, yr + adv * vy,
-                                  zr + adv * vz, px, py, pz)
+                                  zr + adv * vz, px, py, pz, need)
                 big = adv > 1e-5
                 inv = 1.0 / torch.where(big, adv, 1.0)
                 new = (x2, y2, z2,
@@ -752,7 +913,7 @@ def _march_plain(inp: TileInputs):
             a2 = t - carry[6]
             return field_rest(carry[0] + a2 * carry[3],
                               carry[1] + a2 * carry[4],
-                              carry[2] + a2 * carry[5]), carry
+                              carry[2] + a2 * carry[5], need), carry
 
         def step_dt(f, t, carry):
             # The model's staleness 2 L |t - t_r| comes off d before both
@@ -782,11 +943,16 @@ def _march_plain(inp: TileInputs):
                     xx, yy, zz = px - u[0], py - u[1], pz - u[2]
                 return xx, yy, zz
 
-            def eval_c(t, carry, refresh, upd):
-                return field_rest(*pull_back(*point(t))), carry
+            def eval_c(t, carry, refresh, upd, need):
+                if count is not None:
+                    iters = int(need.sum()) * bh.fp_iters
+                    count.pull_iters += iters
+                    count.biharmonic_center_evals += (
+                        iters * bh.centers.shape[0])
+                return field_rest(*pull_back(*point(t)), need), carry
         else:
-            def eval_c(t, carry, refresh, upd):
-                return field_rest(*point(t)), carry
+            def eval_c(t, carry, refresh, upd, need):
+                return field_rest(*point(t), need), carry
 
         def step_dt(f, t, carry):
             d = (support_radius_bound(f + iso) - inp.r_iso) * inv_stretch
@@ -796,39 +962,67 @@ def _march_plain(inp: TileInputs):
         carry = ()
         subs = [False, False]
     return _march_rows(inp.rays, inp.tile, inp.max_steps, inp.bisect_steps,
-                       eval_c, carry, step_dt, subs)
+                       eval_c, carry, step_dt, subs, count)
 
 
-def trace_tiles_plain(inp: TileInputs):
+def trace_tiles_plain(inp: TileInputs, count: WorkCount | None = None):
     """Plain version of K1 (the rest tile trace): (t [n], hit [n])."""
     if inp.wendland is not None or inp.biharmonic is not None:
         raise ValueError("K1 takes no displacement inputs")
-    return _march_plain(inp)
+    return _march_plain(inp, count)
 
 
-def trace_tiles_wendland_plain(inp: TileInputs):
+def trace_tiles_wendland_plain(inp: TileInputs,
+                               count: WorkCount | None = None):
     """Plain version of K2 (the Wendland-deformed tile trace)."""
     if inp.wendland is None:
         raise ValueError("K2 needs Wendland inputs")
-    return _march_plain(inp)
+    return _march_plain(inp, count)
 
 
-def trace_tiles_biharmonic_plain(inp: TileInputs):
+def trace_tiles_biharmonic_plain(inp: TileInputs,
+                                 count: WorkCount | None = None):
     """Plain version of K4 (the biharmonic-deformed tile trace)."""
     if inp.biharmonic is None:
         raise ValueError("K4 needs biharmonic inputs")
-    return _march_plain(inp)
+    return _march_plain(inp, count)
 
 
-def trace_tiles_general_plain(inp: GeneralInputs):
+def trace_tiles_general_plain(inp: GeneralInputs,
+                              count: WorkCount | None = None,
+                              use_live: bool = True):
     """Plain version of K3 (the general tile trace): the same march on
     ops.field.field_rows, two sub-steps per iteration, the Wyvill step
-    bound where the field is monotone and fixed steps elsewhere."""
+    bound where the field is monotone and fixed steps elsewhere. Prims
+    flagged dead on a ray's tile are masked to the 0 they would compute
+    (`use_live=False` evaluates them: the results are the same bit for
+    bit). `count` gets the work these inputs need."""
     rox, roy, roz, rdx, rdy, rdz = inp.rays[:6]
+    scene = inp.scene
+    prim_live = None
+    if use_live:
+        tile_of = torch.arange(rox.shape[0], device=rox.device) // inp.tile
+        prim_live = inp.live[tile_of] > 0
 
-    def eval_c(t, carry, refresh, upd):
-        return field_rows(inp.scene, rox + t * rdx, roy + t * rdy,
-                          roz + t * rdz) - inp.iso, carry
+    def count_reach(x, y, z, need):
+        # Each prim's box is tested at its warp group's point.
+        for chain, prim_idx in scene.warp_groups:
+            if not prim_idx:
+                continue
+            wx, wy, wz = x, y, z
+            for wire in chain:
+                p = tuple(scene.op_params[wire.op_idx, i] for i in range(4))
+                wx, wy, wz = warp_components(
+                    wire.wtype, p, wire.axis_a, wire.axis_b, wx, wy, wz)
+            idx = torch.as_tensor(prim_idx, device=x.device)
+            _count_in_boxes(count, inp.boxes[idx], scene.prim_type[idx],
+                            wx, wy, wz, need)
+
+    def eval_c(t, carry, refresh, upd, need):
+        x, y, z = rox + t * rdx, roy + t * rdy, roz + t * rdz
+        if count is not None:
+            count_reach(x, y, z, need)
+        return field_rows(scene, x, y, z, prim_live) - inp.iso, carry
 
     def step_dt(f, t, carry):
         if not inp.adaptive:
@@ -837,7 +1031,7 @@ def trace_tiles_general_plain(inp: GeneralInputs):
         return torch.clamp(0.95 * d, min=inp.base_step)
 
     return _march_rows(inp.rays, inp.tile, inp.max_steps, inp.bisect_steps,
-                       eval_c, (), step_dt, [False, False])
+                       eval_c, (), step_dt, [False, False], count)
 
 
 def run_tiles(inp: TileInputs | GeneralInputs):

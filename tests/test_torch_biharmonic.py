@@ -51,8 +51,9 @@ def brain_sag_setup(width=32, height=20, cellsize=0.35, n_centers=64):
         js=js, grid=grid, tm=tm, nodes=nodes, fixed=fixed, interp=interp,
         u=u, w=w, ro=np.asarray(ro).reshape(-1, 3),
         rd=np.asarray(rd).reshape(-1, 3),
-        ps=convert.scene(convert.numpy_fields(js)),
-        pinterp=convert.disp_interp(convert.numpy_fields(interp)),
+        ps=convert.scene(convert.numpy_fields(js), device="cpu"),
+        pinterp=convert.disp_interp(convert.numpy_fields(interp),
+                                    device="cpu"),
     )
 
 
@@ -81,7 +82,8 @@ def test_build_disp_interp_matches_jax(setup, kernel, kw):
     kw = {"n_centers": 64, **kw}
     args = {} if kernel == "biharmonic" else {"kernel": kernel}
     ref = jd.build_disp_interp(nodes, fixed=fixed, **args, **kw)
-    got = pd.build_disp_interp(nodes, fixed=fixed, **args, **kw)
+    got = pd.build_disp_interp(nodes, fixed=fixed, device="cpu", **args,
+                               **kw)
     np.testing.assert_array_equal(got.centers.numpy(), np.asarray(ref.centers))
     np.testing.assert_array_equal(got.center_nodes.numpy(),
                                   np.asarray(ref.center_nodes))

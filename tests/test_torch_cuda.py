@@ -3,7 +3,10 @@ their plain versions on the same inputs. The additive kernel (K1 rest, K2
 Wendland, K4 biharmonic) on brain.blob (21 prim blocks, per-eval cull on)
 and on a scene with one prim of every type (2 blocks, cull off); the
 general kernel (K3) on the brain resection (a DIF, fixed steps) and on a
-twisted blend (a warp chain, slab brackets).
+twisted blend (a warp chain, slab brackets). At 480x270 in pixel-block
+order K4 and K3 also run with tiles whose rays all miss, K3 with its
+per-tile live flags, and each kernel's counting build is held to the
+plain version's count of needed lane-evals.
 
 Needs a card; skips without one. It imports only the port, so it runs
 where JAX is not installed:
@@ -69,10 +72,10 @@ def _sag_interp(scene, device, kernel):
     return interp, disp_weights_centers(interp, u_c), pts
 
 
-def _compare(inp, kname, plain, agree, max_dt, median=None):
+def _compare(inp, kname, plain, agree, max_dt, median=None, count=None):
     before = dict(tt.LAUNCHES)
     t_k, h_k = tt.run_tiles(inp)
-    t_p, h_p = plain(inp)
+    t_p, h_p = plain(inp, count)
     torch.cuda.synchronize()
     assert tt.LAUNCHES[kname] == before[kname] + 1
     hk, hp = h_k > 0.5, h_p > 0.5
@@ -117,5 +120,69 @@ def test_general_kernel_matches_plain_version(cuda, make, pose):
     scene = make(pscene).pack(device=cuda)
     ro, rd = _rays(pose, cuda)
     inp = tt.prepare_general(scene, ro, rd)
-    _compare(inp, "trace_general", tt.trace_tiles_general_plain, K3_AGREE,
+    _compare(inp, "trace_general", _general_plain_unmasked, K3_AGREE,
              K3_MAX)
+
+
+def _general_plain_unmasked(inp, count=None):
+    """K3's plain version evaluating every prim: a wrong per-tile live
+    list in `inp` then shows as a disagreement with the kernel."""
+    return tt.trace_tiles_general_plain(inp, count, use_live=False)
+
+
+def _block_rays(pose, device, w=480, h=270):
+    ro, rd = _rays(pose, device, w, h)
+    ro_b, rd_b, _ = tt.image_rays_to_blocks(ro, rd, h, w)
+    return ro_b, rd_b
+
+
+def _check_tiles_and_counts(inp, kernel, kname, plain, agree, max_dt):
+    """Kernel against plain version, the tiles whose rays all miss, and
+    the counting build against the plain version's needed lane-evals."""
+    count = tt.WorkCount()
+    _compare(inp, kname, plain, agree, max_dt, count=count)
+    t_k, h_k = tt.run_tiles(inp)
+    dead = ~(inp.rays[8] > 0).reshape(-1, inp.tile).any(-1)
+    assert 0 < int(dead.sum()) < dead.numel()
+    dead_rays = dead.repeat_interleave(inp.tile)
+    assert torch.equal(t_k[dead_rays], inp.rays[7][dead_rays])
+    assert not bool(h_k[dead_rays].any())
+    lanes = torch.zeros(2, dtype=torch.int64, device=inp.rays.device)
+    t_c, h_c = kernel(inp, lanes)
+    torch.cuda.synchronize()
+    assert torch.equal(t_c, t_k) and torch.equal(h_c, h_k)
+    needed, ran = lanes.tolist()
+    assert abs(needed - count.lane_evals) <= 0.01 * count.lane_evals
+    assert needed <= ran and ran % 32 == 0
+    assert count.flops > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["brain", "every_type"])
+def test_biharmonic_kernel_at_480x270(cuda, name):
+    """K4 with the hull narrowed to the needed lanes: brain (21 blocks,
+    per-eval cull) and the every-type scene (2 blocks, cull off)."""
+    scene, pose = _scene(name, cuda)
+    interp, w, pts = _sag_interp(scene, cuda, "biharmonic")
+    disp = biharmonic_spec(interp, w, *disp_bounds_sampled(interp, w, pts))
+    inp = tt.prepare_tiles(scene, *_block_rays((pose[0], pose[1], 8.0), cuda),
+                           disp=disp)
+    assert inp.dyn_cull == (name == "brain")
+    _check_tiles_and_counts(inp, tt.trace_additive_cuda,
+                            "trace_additive_biharmonic",
+                            tt.trace_tiles_biharmonic_plain, K4_AGREE, K4_MAX)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("make,pose,flag", [
+    (brain_resection, (30.0, 20.0, 8.0), tt.LIVE_BOXED),
+    (blend_twist, (25.0, 20.0, 6.0), tt.LIVE_ALWAYS),
+])
+def test_general_kernel_at_480x270(cuda, make, pose, flag):
+    """K3 with its per-tile live flags: culled prims on the resection,
+    always-live prims under the twist."""
+    scene = make(pscene).pack(device=cuda)
+    inp = tt.prepare_general(scene, *_block_rays(pose, cuda))
+    assert flag in inp.live.unique().tolist()
+    _check_tiles_and_counts(inp, tt.trace_general_cuda, "trace_general",
+                            _general_plain_unmasked, K3_AGREE, K3_MAX)

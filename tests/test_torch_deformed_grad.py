@@ -30,7 +30,9 @@ def _interp(setup, kernel):
     interp = jd.build_disp_interp(setup["nodes"], n_centers=64,
                                   kernel="wendland", sigma_fill=2.5)
     w = np.asarray(jd.disp_weights(interp, jnp.asarray(setup["u"])))
-    return interp, convert.disp_interp(convert.numpy_fields(interp)), w
+    pinterp = convert.disp_interp(convert.numpy_fields(interp),
+                                  device="cpu")
+    return interp, pinterp, w
 
 
 def _w_grads(setup, jax_trace, port_trace, w0):

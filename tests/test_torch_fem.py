@@ -44,7 +44,7 @@ def brain():
     js = sc.pack()
     grid = jax_grid(js, cellsize=0.3)
     jtm = jax_extract(js, grid, ncap=grid.n_vertices, tetcap=grid.n_cells * 6)
-    ps = convert.scene(convert.numpy_fields(js))
+    ps = convert.scene(convert.numpy_fields(js), device="cpu")
     return js, grid, jtm, ps
 
 
@@ -83,10 +83,10 @@ def test_grid_fem_build_matches_jax(brain):
     nodes = np.asarray(jtm.nodes)[: int(jtm.n_nodes)]
     fixed = nodes[:, 1] < nodes[:, 1].min() + 0.3
     jgf = jax_gfm.grid_fem_from_tetmesh(grid, jtm, fixed_nodes=fixed)
-    tm = convert.tet_mesh(convert.numpy_fields(jtm))
+    tm = convert.tet_mesh(convert.numpy_fields(jtm), device="cpu")
     pgf = gfm.grid_fem_from_tetmesh(grid_for_scene(ps, cellsize=0.3), tm,
-                                    fixed_nodes=fixed)
-    cgf = convert.grid_fem(convert.numpy_fields(jgf))
+                                    fixed_nodes=fixed, device="cpu")
+    cgf = convert.grid_fem(convert.numpy_fields(jgf), device="cpu")
     assert len(pgf.levels) == len(cgf.levels) >= 2
     for name in ("cellw", "free", "active", "mass", "ke", "inv_dm", "x0",
                  "kdiag", "coarse_inv"):
@@ -110,7 +110,7 @@ def test_timestep_trajectory_matches_jax(brain):
     tets = np.asarray(jtm.tets)[: int(jtm.n_tets)]
     fixed = jax_bottom(nodes, tets, frac=0.25)
     jgf = jax_gfm.grid_fem_from_tetmesh(grid, jtm, fixed_nodes=fixed)
-    pgf = convert.grid_fem(convert.numpy_fields(jgf))
+    pgf = convert.grid_fem(convert.numpy_fields(jgf), device="cpu")
     n2g = jax_gfm.node_to_grid_index(jtm)
     f_ext = np.zeros((int(np.prod(grid.dims)), 3), np.float32)
     f_ext[n2g, 1] = -500.0 * np.asarray(jgf.mass).reshape(-1)[n2g]
@@ -118,7 +118,7 @@ def test_timestep_trajectory_matches_jax(brain):
 
     jax_step = jax.jit(lambda st: jax_gfm.timestep(jgf, st, jnp.asarray(f_ext)))
     jst = jgf.rest_state()
-    pst = convert.fem_state(convert.numpy_fields(jst))
+    pst = convert.fem_state(convert.numpy_fields(jst), device="cpu")
     for step in range(5):
         jst, j_it = jax_step(jst)
         pst, p_it = gfm.timestep(pgf, pst, torch.tensor(f_ext))

@@ -142,7 +142,7 @@ def graph_size(t):
 def test_fixture_scenes_are_valid_and_additive(make):
     sc = make(pscene)
     assert sc.validate() == []
-    ps = sc.pack()
+    ps = sc.pack(device="cpu")
     assert ps.is_additive and ps.can_cull and ps.monotone_field
     assert ps.n_prims == len(sc.prims)
 
@@ -158,6 +158,6 @@ def test_general_fixture_scenes(make, cull, monotone):
     cull and step regime each is meant to exercise."""
     sc = make(pscene)
     assert sc.validate() == []
-    ps = sc.pack()
+    ps = sc.pack(device="cpu")
     assert not ps.is_additive
     assert (ps.can_cull, ps.monotone_field) == (cull, monotone)

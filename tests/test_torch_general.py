@@ -50,7 +50,7 @@ def _setup(name, size=None):
     js = make(jscene).pack()
     w, h = size or wh
     ro, rd = jax_rays(JaxCamera.orbit(*pose), w, h)
-    return (js, convert.scene(convert.numpy_fields(js)),
+    return (js, convert.scene(convert.numpy_fields(js), device="cpu"),
             np.asarray(ro).reshape(-1, 3), np.asarray(rd).reshape(-1, 3))
 
 
@@ -142,7 +142,7 @@ def test_resection_cuts_the_brain():
     _, pr, ro, rd = _setup("resection", (64, 36))
     sc = jax_load_blob(BRAIN)
     sc.flatten_instances()
-    brain = convert.scene(convert.numpy_fields(sc.pack()))
+    brain = convert.scene(convert.numpy_fields(sc.pack()), device="cpu")
     ro_t, rd_t = torch.tensor(ro), torch.tensor(rd)
     t_b, h_b = tt.trace_tiles(brain, ro_t, rd_t)
     t_r, h_r = tt.trace_tiles(pr, ro_t, rd_t)

@@ -45,7 +45,7 @@ FIXTURES = {
 def test_pack_matches_jax(name):
     """Packed arrays equal (atol 0) and static metadata equal."""
     make_jax, make_port = FIXTURES[name]
-    js, ps = make_jax().pack(), make_port().pack()
+    js, ps = make_jax().pack(), make_port().pack(device="cpu")
     for f in dataclasses.fields(js):
         a, b = getattr(js, f.name), getattr(ps, f.name)
         if isinstance(b, torch.Tensor):
@@ -59,7 +59,7 @@ def test_pack_matches_jax(name):
 
 
 def test_brain_static_metadata():
-    ps = _brain(load_blob).pack()
+    ps = _brain(load_blob).pack(device="cpu")
     assert (ps.n_prims, ps.capacity_prims) == (163, 168)
     assert len(ps.additive_block_types) == 21
     assert ps.prim_types_present == (int(PrimType.POINT),
@@ -74,7 +74,7 @@ def test_field_matches_jax(name):
     """field at 4096 seeded points, atol 1e-5."""
     make_jax, _ = FIXTURES[name]
     js = make_jax().pack()
-    ps = convert.scene(convert.numpy_fields(js))
+    ps = convert.scene(convert.numpy_fields(js), device="cpu")
     lo, hi = np.asarray(js.bbox_lo), np.asarray(js.bbox_hi)
     rng = np.random.default_rng(7)
     pts = (lo - 0.2 + rng.random((4096, 3)) * (hi - lo + 0.4)).astype(
@@ -88,8 +88,8 @@ def test_field_matches_jax(name):
 def test_convert_scene_round_trip():
     """convert.scene rebuilds the same packed scene the port packs."""
     js = _brain(jax_load_blob).pack()
-    cs = convert.scene(convert.numpy_fields(js))
-    ps = _brain(load_blob).pack()
+    cs = convert.scene(convert.numpy_fields(js), device="cpu")
+    ps = _brain(load_blob).pack(device="cpu")
     for f in dataclasses.fields(ps):
         a, b = getattr(cs, f.name), getattr(ps, f.name)
         if isinstance(b, torch.Tensor):
@@ -100,6 +100,7 @@ def test_convert_scene_round_trip():
 
 def test_rays_match_jax():
     ro_j, rd_j = jax_rays(JaxCamera.orbit(30.0, 20.0, 8.0), 48, 27)
-    ro, rd = generate_rays(Camera.orbit(30.0, 20.0, 8.0), 48, 27)
+    ro, rd = generate_rays(
+        Camera.orbit(30.0, 20.0, 8.0, device="cpu"), 48, 27)
     np.testing.assert_allclose(ro.numpy(), np.asarray(ro_j), atol=1e-6)
     np.testing.assert_allclose(rd.numpy(), np.asarray(rd_j), atol=1e-6)

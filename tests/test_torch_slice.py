@@ -1,14 +1,16 @@
 """PyTorch port, the slice as a whole: two coupled frames of the port's
 `coupled_step_grid_fast` against the same frames composed from the JAX
 package (grid-FEM step -> Wendland weights -> Pallas deformed trace in
-interpret mode) on a small additive scene; and the package's import
-hygiene."""
+interpret mode) on a small additive scene; the package's import
+hygiene; and its default device."""
+import inspect
 import os
 import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -23,7 +25,12 @@ from fembrain_tpu.render import deformed as jd
 from fembrain_tpu.render.camera import Camera as JaxCamera
 from fembrain_tpu.render.camera import generate_rays as jax_rays
 
+import fembrain_tpu_torch
 from fembrain_tpu_torch import convert
+from fembrain_tpu_torch.blob.scene import SceneDef
+from fembrain_tpu_torch.fem import grid_fem as pgfm
+from fembrain_tpu_torch.render import deformed as pd
+from fembrain_tpu_torch.render.camera import Camera
 from fembrain_tpu_torch.render.deformed import coupled_step_grid_fast
 
 from test_torch_fem import BRAIN, assert_fem_state_close
@@ -63,10 +70,10 @@ def test_coupled_frames_match_composed_jax_steps():
     for _ in range(3):
         jst, _ = jax_step(jst)
 
-    ps = convert.scene(convert.numpy_fields(js))
-    pgf = convert.grid_fem(convert.numpy_fields(jgf))
-    pinterp = convert.disp_interp(convert.numpy_fields(interp))
-    pst = convert.fem_state(convert.numpy_fields(jst))
+    ps = convert.scene(convert.numpy_fields(js), device="cpu")
+    pgf = convert.grid_fem(convert.numpy_fields(jgf), device="cpu")
+    pinterp = convert.disp_interp(convert.numpy_fields(interp), device="cpu")
+    pst = convert.fem_state(convert.numpy_fields(jst), device="cpu")
     p_fext = torch.tensor(np.asarray(f_ext))
     p_cgi = torch.tensor(cgi.astype(np.int64))
     ro_t, rd_t = torch.tensor(ro), torch.tensor(rd)
@@ -115,3 +122,28 @@ def test_package_imports_no_jax_and_keeps_f32_matmuls():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+# Each public constructor with the function that resolves its `device`.
+_CONSTRUCTORS = [
+    (SceneDef.pack, SceneDef.pack), (Camera.make, Camera.make),
+    (Camera.orbit, Camera.make),
+    (pgfm.build_grid_fem, pgfm.build_grid_fem),
+    (pgfm.grid_fem_from_tetmesh, pgfm.build_grid_fem),
+    (pd.build_disp_interp, pd.build_disp_interp),
+] + [(f, convert._build) for f in (
+    convert.scene, convert.tet_mesh, convert.grid_fem, convert.disp_interp,
+    convert.fem_state)]
+
+
+@pytest.mark.parametrize("ctor,resolver", _CONSTRUCTORS,
+                         ids=[c.__qualname__ for c, _ in _CONSTRUCTORS])
+def test_constructors_default_to_the_card(ctor, resolver):
+    """Every public constructor takes `device=None`, and the None is
+    resolved through `default_device()`, which is the CUDA card whether
+    or not one is present (no card is needed to check that)."""
+    assert inspect.signature(ctor).parameters["device"].default is None
+    assert "default_device() if device is None" in inspect.getsource(resolver)
+    if resolver is not ctor:
+        assert resolver.__name__ in inspect.getsource(ctor)
+    assert fembrain_tpu_torch.default_device() == torch.device("cuda")

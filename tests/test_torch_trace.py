@@ -48,7 +48,7 @@ def test_rest_trace_matches_pallas_and_port_tracer(name):
     t_j, h_j = trace_pallas(js, ro, rd, interpret=True, tile=TILE)
     t_j, h_j = np.asarray(t_j), np.asarray(h_j)
 
-    ps = convert.scene(convert.numpy_fields(js))
+    ps = convert.scene(convert.numpy_fields(js), device="cpu")
     ro_t, rd_t = torch.tensor(ro), torch.tensor(rd)
     t_p, h_p = tt.trace_tiles(ps, ro_t, rd_t, tile=TILE)
     t_p, h_p = t_p.numpy(), h_p.numpy()
@@ -66,7 +66,7 @@ def test_image_trace_matches_pallas_image():
     ro, rd = jax_rays(JaxCamera.orbit(*pose), w, h)
     ro, rd = np.asarray(ro).reshape(-1, 3), np.asarray(rd).reshape(-1, 3)
     t_j, h_j = trace_pallas_image(js, ro, rd, h, w, interpret=True, tile=TILE)
-    ps = convert.scene(convert.numpy_fields(js))
+    ps = convert.scene(convert.numpy_fields(js), device="cpu")
     t_p, h_p = tt.trace_tiles_image(ps, torch.tensor(ro), torch.tensor(rd),
                                     h, w, tile=TILE)
     _agree(np.asarray(h_j), np.asarray(t_j), h_p.numpy(), t_p.numpy())
@@ -84,7 +84,7 @@ def test_block_layout_round_trip():
 
 def test_wrapper_takes_plain_version_on_cpu_only():
     js, pose, (w, h) = _scene("small")
-    ps = convert.scene(convert.numpy_fields(js))
+    ps = convert.scene(convert.numpy_fields(js), device="cpu")
     ro, rd = jax_rays(JaxCamera.orbit(*pose), w, h)
     inp = tt.prepare_tiles(ps, torch.tensor(np.asarray(ro).reshape(-1, 3)),
                            torch.tensor(np.asarray(rd).reshape(-1, 3)),
@@ -104,7 +104,7 @@ def test_brain_layout_cull_flags():
     flags skip blocks a tile's rays can never reach."""
     sc = jax_load_blob(BRAIN)
     sc.flatten_instances()
-    ps = convert.scene(convert.numpy_fields(sc.pack()))
+    ps = convert.scene(convert.numpy_fields(sc.pack()), device="cpu")
     ro, rd = jax_rays(JaxCamera.orbit(30.0, 20.0, 8.0), 64, 40)
     inp = tt.prepare_tiles(ps, torch.tensor(np.asarray(ro).reshape(-1, 3)),
                            torch.tensor(np.asarray(rd).reshape(-1, 3)),

@@ -33,7 +33,7 @@ def train_setup():
     f_ext = np.zeros((int(np.prod(grid.dims)), 3), np.float32)
     f_ext[n2g, 1] = -200.0 * np.asarray(jgf.mass).reshape(-1)[n2g]
     st.update(
-        jgf=jgf, pgf=convert.grid_fem(convert.numpy_fields(jgf)),
+        jgf=jgf, pgf=convert.grid_fem(convert.numpy_fields(jgf), device="cpu"),
         cgi=n2g[np.asarray(interp.center_nodes)],
         f_ext=f_ext.reshape(*grid.dims, 3),
     )

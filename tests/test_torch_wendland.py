@@ -53,8 +53,9 @@ def setup():
     ro, rd = jax_rays(JaxCamera.orbit(30.0, 20.0, 5.0), 32, 20)
     return dict(
         js=js, nodes=nodes, interp=interp, u=u, w=w,
-        ps=convert.scene(convert.numpy_fields(js)),
-        pinterp=convert.disp_interp(convert.numpy_fields(interp)),
+        ps=convert.scene(convert.numpy_fields(js), device="cpu"),
+        pinterp=convert.disp_interp(convert.numpy_fields(interp),
+                                    device="cpu"),
         ro=np.asarray(ro).reshape(-1, 3), rd=np.asarray(rd).reshape(-1, 3),
     )
 
@@ -62,7 +63,8 @@ def setup():
 def test_build_disp_interp_matches_jax(setup):
     ref = setup["interp"]
     got = pd.build_disp_interp(setup["nodes"], n_centers=64,
-                               kernel="wendland", sigma_fill=2.5)
+                               kernel="wendland", sigma_fill=2.5,
+                               device="cpu")
     np.testing.assert_array_equal(got.centers.numpy(), np.asarray(ref.centers))
     np.testing.assert_array_equal(got.center_nodes.numpy(),
                                   np.asarray(ref.center_nodes))
