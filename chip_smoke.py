@@ -16,12 +16,19 @@ Phases, each raising on failure:
      larger of its flops over the H100's fp32 peak and the bytes these
      rays need (tile_trace.ray_bytes) over its memory rate, and the
      kernel's counting build gives the share of lanes that were busy; K3
-     is held against its plain version without the per-tile live list;
+     is held against its plain version without the per-tile live list.
+     Beside the bound, what each kernel pays: its time on the same grid
+     with every ray dead (empty grid) and with no march and no refinement
+     (entry only), the live tiles and patches, the prims, pull-back lanes
+     and centers its culls let run against those the work needs, held to
+     the plain version's count of the same, the SM clock under load, and
+     K2's build for two CTAs an SM beside the shipped one for three;
   4. with the launch counters at 0, run the main path at 1920x1080: load
      and pack brain.blob, extract the tet mesh (cellsize 0.14), build the
      grid FEM and the 256-center Wendland interpolant, settle 40 steps,
-     trace one rest frame (K1) and 10 coupled frames (K2); check the
-     counters, hits, finiteness and the FEM sag, and print stage times;
+     trace 10 rest frames (K1), cold then warm, and 10 coupled frames
+     (K2); check the counters, hits, finiteness and the FEM sag, and print
+     stage times;
   5. with the launch counters at 0 again, the training path at 1920x1080:
      (a) trace_fast on the brain resection (K3) and the gradient of the
      summed hit depth with respect to the prim positions; (b) from the
@@ -69,6 +76,7 @@ THRESHOLDS = {
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 MAX_BOUND_SHARE = 1.05   # a kernel cannot beat its bound; 5% for the clock
+RUN_COUNT_TOL = 0.01     # kernel's run counters against the plain version's
 LAUNCHES_PER_STEP = 1    # what every path is held to
 LIBRARY = "none: no single PyTorch call computes a sphere trace"
 KERNELS = (  # name, source, the TPU kernel it replaces
@@ -92,6 +100,16 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def sm_clock_mhz() -> float:
+    """The SM clock nvidia-smi reports now (read right after a timed run,
+    while the card still holds its clock under load)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return float(out.stdout.strip().splitlines()[0].split()[0])
+
+
 def sync_ms(fn, reps: int = 1):
     """Mean milliseconds of `fn()` over `reps` calls, host clock around a
     synchronised run; returns (ms, last result)."""
@@ -107,10 +125,16 @@ def sync_ms(fn, reps: int = 1):
 
 def event_ms(fn, reps: int):
     """Mean device milliseconds of `fn()` from CUDA events, after one
-    warm-up call."""
+    warm-up call. A few large matrix products go first, so that the host
+    has queued every launch before the card reaches the first event: a
+    kernel shorter than its wrapper's host time is then still timed on the
+    card."""
     import torch
 
     fn()
+    busy = torch.ones(4096, 4096, device="cuda")
+    for _ in range(4):
+        busy @ busy
     start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     for _ in range(reps):
@@ -264,7 +288,7 @@ def bound(name, kernel, inp, count, ms, tag, log):
     kernel's counting build. Raises when the share is impossible."""
     import torch
 
-    from fembrain_tpu_torch.render.tile_trace import ray_bytes
+    from fembrain_tpu_torch.render.tile_trace import N_COUNTERS, ray_bytes
 
     rays = inp.rays.shape[1]
     alive = int((inp.rays[8] > 0).sum())
@@ -273,10 +297,11 @@ def bound(name, kernel, inp, count, ms, tag, log):
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
     bound_ms = max(flops_ms, bytes_ms)
     share = bound_ms / ms
-    lanes = torch.zeros(2, dtype=torch.int64, device=inp.rays.device)
+    lanes = torch.zeros(N_COUNTERS, dtype=torch.int64,
+                        device=inp.rays.device)
     kernel(inp, lanes)
     torch.cuda.synchronize()
-    needed, ran = (int(v) for v in lanes.tolist())
+    needed, ran = (int(v) for v in lanes.tolist()[:2])
     log(f"{name} work: {count.lane_evals} needed lane-evals (counting build "
         f"{needed}, lanes of the warp-evals that ran {ran}, busy share "
         f"{needed / max(ran, 1):.4f}), {count.prims_in_reach} prims in reach "
@@ -300,7 +325,68 @@ def bound(name, kernel, inp, count, ms, tag, log):
         bound_share=share, library_ms=None, library=LIBRARY,
         needed_lane_evals=count.lane_evals,
         busy_lane_share=needed / max(ran, 1),
+        **split(name, kernel, inp, count, lanes.tolist(), ms, tag, log),
     )
+
+
+def split(name, kernel, inp, count, ran, ms, tag, log):
+    """What the kernel pays beside its bound: the time of the same grid
+    with every ray dead, and with no march and no refinement; live tiles
+    and patches; what its culls let run (the counting build's `ran`)
+    against what the work needs, held to the plain version's count of the
+    same culls; and the SM clock right after the timed runs."""
+    from fembrain_tpu_torch.render import tile_trace as tt
+
+    dead = inp.rays.clone()
+    dead[8] = 0.0
+    empty = dataclasses.replace(inp, rays=dead)
+    empty_ms = event_ms(lambda: kernel(empty), 10)
+    entry = dataclasses.replace(inp, max_steps=0, bisect_steps=0)
+    entry_ms = event_ms(lambda: kernel(entry), 10)
+    clock = sm_clock_mhz()
+    alive = inp.rays[8] > 0
+    n = alive.shape[0]
+    live_tiles = int(alive.reshape(-1, inp.tile).any(-1).sum())
+    live_patches = int(alive[tt.patch_rays(n, inp.tile, alive.device)]
+                       .any(-1).sum())
+    _, lanes_run, prims_run, pull_lanes_run, centers_run = ran
+    pairs = [("lanes", lanes_run, count.lanes_run),
+             ("prims", prims_run, count.prims_run)]
+    out = dict(
+        empty_grid_ms=empty_ms, entry_only_ms=entry_ms,
+        live_tiles=live_tiles, live_patches=live_patches,
+        prims_run_per_in_reach=prims_run / max(count.prims_in_reach, 1),
+        lane_prims_run=prims_run, sm_clock_mhz=clock,
+    )
+    if name == "trace_additive_wendland":
+        pairs += [("pull-back lanes", pull_lanes_run, count.pull_lanes_run),
+                  ("centers", centers_run, count.centers_run)]
+        out.update(
+            pull_lanes_run_per_needed=pull_lanes_run / count.pull_iters,
+            centers_run_per_in_reach=(centers_run
+                                      / count.wendland_center_evals),
+            lane_centers_run=centers_run,
+            # The residency variant kept in the tree: two CTAs an SM.
+            ms_two_ctas=event_ms(lambda: kernel(inp, two_ctas=True), 10))
+    log(f"{name} split: empty grid {empty_ms:.4f} ms, entry only "
+        f"{entry_ms:.4f} ms of {ms:.4f} ms; {live_tiles} live tiles of "
+        f"{n // inp.tile}, {live_patches} live patches of {n // 32}; ran "
+        + ", ".join(f"{label} {k} (plain version {p})"
+                    for label, k, p in pairs)
+        + f"; prims run per prim in reach "
+        f"{out['prims_run_per_in_reach']:.3f}"
+        + (f", pull-back lanes run per needed "
+           f"{out['pull_lanes_run_per_needed']:.3f}, centers run per center "
+           f"in reach {out['centers_run_per_in_reach']:.3f}"
+           if "centers_run_per_in_reach" in out else "")
+        + (f"; built for two CTAs an SM {out['ms_two_ctas']:.4f} ms"
+           if "ms_two_ctas" in out else "")
+        + f"; SM clock {clock:.0f} MHz {tag}")
+    for label, k, p in pairs:
+        if abs(k - p) > RUN_COUNT_TOL * max(p, 1):
+            raise AssertionError(f"{name}: the kernel ran {k} {label}, its "
+                                 f"plain version counts {p}")
+    return out
 
 
 def kernel_phase(root, device, params, tag, log):
@@ -314,9 +400,7 @@ def kernel_phase(root, device, params, tag, log):
         wendland_spec,
     )
 
-    sys.path.insert(0, str(root / "tests"))
-    from test_torch_fixtures import blend_twist, brain_resection
-    import fembrain_tpu_torch.blob.scene as pscene
+    from fembrain_tpu_torch.blob.examples import blend_twist, brain_resection
 
     tile = tt.TILE
     frame = build_frame(root, device, log)
@@ -328,8 +412,8 @@ def kernel_phase(root, device, params, tag, log):
         frame, state, device, log, tag)
     spec_b = biharmonic_spec(interp_b, w_b, *march_step_bounds(interp_b, w_b),
                              max_disp=max_disp)
-    resection = brain_resection(pscene).pack(device=device)
-    twist = blend_twist(pscene).pack(device=device)
+    resection = brain_resection().pack(device=device)
+    twist = blend_twist().pack(device=device)
     cases = []
     for size in (SMALL, (WIDTH, HEIGHT)):
         cases += [
@@ -397,6 +481,16 @@ def main_path_phase(root, device, params, tag, log):
         lambda: tt.trace_tiles_image(scene, ro, rd, HEIGHT, WIDTH, params),
         reps=N_FRAMES,
     )
+    # The same frame warm, then its host side and its kernel on their own.
+    warm_ms, _ = sync_ms(
+        lambda: tt.trace_tiles_image(scene, ro, rd, HEIGHT, WIDTH, params),
+        reps=N_FRAMES,
+    )
+    ro_b, rd_b, _ = tt.image_rays_to_blocks(ro, rd, HEIGHT, WIDTH)
+    prepare_ms, rest_inp = sync_ms(
+        lambda: tt.prepare_tiles(scene, ro_b, rd_b, params), reps=N_FRAMES)
+    run_ms, _ = sync_ms(lambda: tt.run_tiles(rest_inp), reps=N_FRAMES)
+    del rest_inp
     state = st0
     cg_iters = []
 
@@ -432,9 +526,10 @@ def main_path_phase(root, device, params, tag, log):
     )
     main_s = time.perf_counter() - t_main
     launches = dict(tt.LAUNCHES)
-    # N_FRAMES rest frames; N_FRAMES coupled frames and as many trace
-    # stages of the split.
-    steps = {"trace_additive_rest": N_FRAMES,
+    # Two sets of N_FRAMES rest frames and N_FRAMES kernel runs of the
+    # rest split; N_FRAMES coupled frames and as many trace stages of the
+    # coupled split.
+    steps = {"trace_additive_rest": 3 * N_FRAMES,
              "trace_additive_wendland": len(cg_iters) + N_FRAMES}
 
     log(f"launches in the main path: {launches}, steps {steps}")
@@ -457,7 +552,9 @@ def main_path_phase(root, device, params, tag, log):
         f"coupled-frame CG iterations {cg_iters}; sag min q_y {sag:.6f}")
     rays = WIDTH * HEIGHT
     log(f"rest trace {WIDTH}x{HEIGHT}: {rest_ms:.3f} ms/frame, "
-        f"{rays / rest_ms * 1e3:.1f} rays/s {tag}")
+        f"{rays / rest_ms * 1e3:.1f} rays/s; warm {warm_ms:.3f} ms/frame, "
+        f"of it prepare_tiles {prepare_ms:.3f} ms, the kernel with its "
+        f"wrapper {run_ms:.3f} ms {tag}")
     log(f"coupled frame {WIDTH}x{HEIGHT}: {frame_ms:.3f} ms/frame, "
         f"{1e3 / frame_ms:.3f} fps {tag}")
     log(f"coupled split: fem {fem_ms:.3f} ms, rbf {rbf_ms:.3f} ms, "
@@ -483,11 +580,9 @@ def training_phase(root, device, params, frame, tag, log):
         coupled_step_grid_fast, disp_weights_centers, max_disp_bound,
     )
 
-    sys.path.insert(0, str(root / "tests"))
-    from test_torch_fixtures import brain_resection
-    import fembrain_tpu_torch.blob.scene as pscene
+    from fembrain_tpu_torch.blob.examples import brain_resection
 
-    resection = brain_resection(pscene).pack(device=device)
+    resection = brain_resection().pack(device=device)
     scene, gf, st0 = frame["scene"], frame["gf"], frame["state"]
     interp_b, cgi_b, _, max_disp, _ = biharmonic_frame_spec(
         frame, st0, device, log, tag)

@@ -9,8 +9,12 @@
 // fembrain_tpu_torch/ops/field.py and render/sphere_trace.py.
 //
 // A prim row is read from shared memory as six 16-byte loads: every lane
-// of a warp reads the same row, and where the kernels are paced by the
-// instruction rate a scalar load costs as much as a vector one.
+// of a warp reads the same row, and a scalar load costs an instruction
+// slot like a vector one. One POINT row is 41 warp instructions in the
+// additive kernel's walk (loads, transform and type test 26, distance 6,
+// Wyvill 4, loop 5), a CYLINDER row some 70 (SASS for sm_90a): a kernel
+// that evaluates prims outside its lanes' reach pays in instruction slots, so
+// both kernels cull per prim against the hull below before they walk.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -105,13 +109,14 @@ __device__ inline float prim_field(const float* p, float x, float y,
   const float qx = r3.w, qy = r4.x, qz = r4.y;
   const float res0 = r4.z, res1 = r4.w, res2 = r5.x;
   const int type = static_cast<int>(r5.z);
+  // The commonest type ahead of the switch: a compare and a branch where
+  // the jump table costs a constant load and an indirect branch.
+  if (type == kPoint) {
+    const float ex = px - vx, ey = py - vy, ez = pz - vz;
+    return wyvill(dot3(ex, ey, ez, ex, ey, ez));
+  }
   float d2 = kBig;
   switch (type) {
-    case kPoint: {
-      const float ex = px - vx, ey = py - vy, ez = pz - vz;
-      d2 = dot3(ex, ey, ez, ex, ey, ez);
-      break;
-    }
     case kLine: {
       const float lx = qx - px, ly = qy - py, lz = qz - pz;
       const float dd = dot3(lx, ly, lz, lx, ly, lz);

@@ -12,57 +12,74 @@
 //       eval pulling back from scratch with fp_iters fixed-point iterations
 //       x <- y - (sum_j w_j |x - c_j| + a + B x) over all M centers.
 // The plain PyTorch version of all three is fembrain_tpu_torch/render/
-// tile_trace.py `_march_plain`; the host-side layout is `prepare_tiles`.
+// tile_trace.py `_march_plain`; the host-side layout is `prepare_tiles`
+// (with `pack_tables` and `live_patches`).
 //
 // What bounds it on an H100: operations, not bytes. It needs 16 bytes of
 // every ray (alive0 and t_exit read, t and hit written) and 28 more of a
 // ray that starts alive (0.013-0.021 ms of memory time for a 1080p
-// frame); the work
-// is scalar fp32 arithmetic in a data-dependent march: per field
-// evaluation that a ray needs, 30-46 flops for every prim whose support
-// box holds the point, in K4 also 16 flops per center and pull-back
-// iteration, in K2 23 per center in reach at every refresh. On a 1080p
-// brain frame (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6) K4 runs
-// at 0.44 of the fp32 bound for that work: its center loop takes about
-// 12 instructions for 16 counted flops. K1 and K2 need 0.014 and 0.039 ms
-// of arithmetic, a little more than their bytes, and both run at 0.02 of
-// that bound: fixed costs hold them (the CTAs of empty tiles, the
-// copy into shared memory, a march that is a serial chain of evals).
-// What the kernel pays beyond the bound: prims of
-// blocks that the warp's hull reaches and the lane's point does not, lanes
-// of a warp that are done while others march, and the instruction
-// slots of loads, branches and the march's own bookkeeping. Design:
-//   * one ray a thread, one tile (a 16x16 pixel block at tile = 256) per
-//     CTA; a warp takes an 8x4 pixel patch of it, so its rays end together
-//     more often and its hull is tight;
-//   * a tile with no live ray writes its misses and leaves before it
-//     copies anything; the others copy prim rows, block boxes and, in K2
-//     and K4, centers and weights into shared memory once, laid out for
-//     wide loads (a prim row is six 16-byte loads, a center with its
-//     weights one of 16 and one of 8): a scalar load costs an instruction
-//     slot like a vector one. The center loop is paced by the bytes shared
-//     memory hands to each lane, so a center takes its 24 bytes and no
-//     padding (padded to 32 bytes the loop ran slower, and from
-//     constant memory slower still);
-//   * after that copy K1 and K4 have no CTA-wide barrier: a ray's result
-//     does not depend on its neighbours, so every warp marches on its own
-//     and leaves when its 32 rays are done. K2 keeps the tile-wide loop
-//     test because its lanes refresh their rest-point model for as long
-//     as the tile marches;
-//   * the block cull is per warp and per eval: the hull of the points
-//     whose value is needed (six warp reductions on integer keys), each
-//     lane tests one block box against it, a ballot makes the list, and
-//     the warp walks the set bits. The cull is exact (compact support: a
-//     skipped block adds exactly 0), so the hull is taken over the needed
-//     lanes alone and finished lanes do no work, in K4 no pull-back
-//     either;
+// frame); the work is scalar fp32 arithmetic in a data-dependent march:
+// per field evaluation that a ray needs, 30-46 flops for every prim whose
+// support box holds the point, in K4 also 16 flops per center and
+// pull-back iteration, in K2 23 per center in reach at every refresh. On a
+// 1080p brain frame (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6) K4
+// runs at 0.44 of the fp32 bound for that work: its center loop takes
+// about 12 instructions for 16 counted flops. K1 and K2 need 0.014 and
+// 0.039 ms of arithmetic, a little more than their bytes, and were
+// measured to pay for it in instructions on work outside the lanes'
+// reach, not in fixed costs: with blocks of 8 prims and of 32 centers
+// culled against a warp's hull, a warp ran 6.9 (K1) and 8.0 (K2) prims
+// for every prim in a lane's reach and 9.0 centers for every center in
+// reach, at some 50 instructions a prim and 30-40 a center, while the whole grid
+// with every ray dead took 0.03 ms and the grid, the copy into shared
+// memory and the entry eval together 0.05 (K1) and 0.13 ms (K2) of 0.81
+// and 1.84 ms. With the culls below a warp runs 1.2 prims and 1.15
+// centers per one in reach and both kernels take under half their time;
+// what is left is the latency of a patch's serial chain of evals (the
+// instruction slots of the prims and centers that run are about a sixth
+// of the time) and lanes of a warp that are done while others march.
+// Design:
+//   * one ray a thread and a warp on a patch of 32 rays: of a 256-ray tile
+//     (a 16x16 pixel block) an 8x4 pixel patch, so its rays end together
+//     more often and its hull is tight. No step of the march is CTA-wide:
+//     a ray's result does not depend on its neighbours in any mode (K2
+//     refreshes the rest-point model of a lane only while that lane
+//     marches), so every warp marches alone;
+//   * CTAs stay resident (three an SM in K2, four in K1 and K4; see
+//     default_ctas).
+//     Each copies the tables once, as one 16-byte-aligned block that the
+//     host laid out in the shared-memory layout (cp.async, in flight
+//     while the CTA writes its share of the misses: a ray that starts
+//     dead gets t_exit and no hit in a first pass over all rays); then
+//     its warps take patches off the host's list of patches with a live
+//     ray through one atomic counter until the list is empty. Which warp
+//     takes which patch changes no result;
+//   * the prim cull is per warp, per eval and per prim: the hull of the
+//     points whose value is needed (six warp reductions on integer keys),
+//     each lane tests one prim's support box against it, a ballot per 32
+//     prims, and the warp walks the set bits. Words whose prims the
+//     tile's static flags rule out are skipped. The cull is exact
+//     (compact support: a skipped prim adds exactly 0) and the sum keeps
+//     its order, a partial sum per block of 8, so hits and roots are those
+//     of the block cull, bit for bit;
+//   * K2's center cull is per center: each lane tests whether one center
+//     lies within sigma of the hull of the refreshing lanes' estimates,
+//     a ballot per block of 32 (blocks the tile's static flags rule out
+//     are skipped), partial sums per block as in the plain version. The
+//     loop takes its square root as one special-function instruction;
+//   * tables are laid out for wide loads (a prim row is six 16-byte
+//     loads, a center with its weights one of 16 and one of 8): a scalar
+//     load costs an instruction slot like a vector one. K4's center loop
+//     is paced by the bytes shared memory hands to each lane, so a center
+//     takes its 24 bytes and no padding;
 //   * K4 computes |x - c| directly, its square root as one
 //     special-function instruction (sqrt.approx): the TPU kernel's
 //     recentred quadratic expansion exists for its matrix unit and buys
 //     nothing here.
 // A counting build of each mode (the `counts` argument) adds up the needed
-// lane-evals and 32 for every warp-eval that ran, whose ratio is the share
-// of busy lanes; the shipped path does not count.
+// lane-evals, 32 for every warp-eval that ran, 32 for every prim and
+// center a warp evaluated and 32 for every warp pull-back; the shipped
+// path does not count.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -78,81 +95,86 @@ using fb::prim_field;
 using fb::support_radius_bound;
 using fb::warp_hull;
 
-constexpr int kPrimBlock = 8;
-constexpr int kMaxThreads = 256;
-// Three CTAs of 256 threads an SM: 80 registers a thread. The few spilled
-// bytes that costs K2 and K3 are cheaper than running two CTAs an SM.
-constexpr int kMinCtas = 3;
+constexpr int kPrimBlock = 8;   // prims per Morton block (a partial sum)
+constexpr int kCenBlock = 32;   // centers per block (a flag, a partial sum)
+constexpr int kThreads = 256;   // eight warps a CTA, each on its own patch
 constexpr unsigned kFull = 0xffffffffu;
 
 enum Mode { kRest = 0, kWendland = 1, kBiharmonic = 2 };
+// Counting build: needed lane-evals, lanes of the warp-evals that ran,
+// lane-prims run, lanes of the warp pull-backs that ran, lane-centers run.
+enum Counter { kNeeded = 0, kLanesRun, kPrimsRun, kPullLanesRun, kCentersRun };
+
+// CTAs an SM the kernel of each mode is compiled for (the register budget
+// of __launch_bounds__: 64 registers a thread at four, 80 at three, 128 at
+// two). K2 is also built for two, which the caller can ask for, so that
+// its choice of three can be measured again.
+__host__ __device__ constexpr int default_ctas(int mode) {
+  return mode == 1 /* kWendland */ ? 3 : 4;
+}
+constexpr int kMeasuredCtas = 2;  // K2's second build
 
 struct Args {
   const float* rays;       // [9, n] ro xyz, rd xyz, t_enter, t_exit, alive0
   const int* live;         // [tiles, n_blocks] blocks a tile may evaluate
-  const float* boxes;      // [n_blocks, 6] block support boxes lo|hi
   const float* tile_rows;  // [tiles, 4] inv_stretch, shrink, slack, L
-  const float* prims;      // [n_prims, kPrimRow]
+  const float4* tables;    // the shared-memory image, see Layout
+  const int* work;         // patches with a live ray, in order
+  const int* n_work;       // [1] how many
+  int* next;               // [1] zeroed: the next entry of `work` to take
   float* t_out;            // [n]
   float* hit_out;          // [n]
-  unsigned long long* counts;  // counting build: needed lane-evals, lanes run
-  int n_rays, n_prims, n_blocks, dyn_cull;
+  unsigned long long* counts;  // counting build: see Counter
+  int n_rays, tile, n_prims, n_blocks, dyn_cull;
   float iso, r_iso, base_step;
   int max_steps, bisect_steps;
-  // Deformed modes: centers and kernel weights ([n_centers, 3] each), the
-  // affine tail [3, 4] (column 0 constant, 1:4 linear).
-  const float* centers;
-  const float* weights;
-  const float* waff;
-  int n_centers;
-  // Wendland mode only.
-  const float* cboxes;     // [n_cb, 6]
-  const int* clive;        // [tiles, n_cb]
-  int n_cb, cen_block, k_refresh;
-  float inv_sigma;
-  // Biharmonic mode only.
-  int fp_iters;
+  int n_centers;           // deformed modes
+  const int* clive;        // Wendland: [tiles, n_centers / kCenBlock]
+  int k_refresh;
+  float sigma, inv_sigma;
+  int fp_iters;            // biharmonic
 };
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
-// Shared-memory layout in 4-byte words, shared by host and device; every
-// table starts on a 16-byte boundary. Boxes are stored as lo xyz _ | hi
-// xyz _; a center with its weights takes 24 bytes, c xyz w_x in `centers`
-// and w_y w_z in `weights`.
+// The tables every patch reads, in 4-byte words; render/tile_trace.py
+// `pack_tables` lays them out in device memory in this order, so a CTA
+// copies one straight block. Every table starts on a 16-byte boundary.
+// Boxes are lo xyz _ | hi xyz _; a center with its weights takes 24 bytes,
+// c xyz w_x in `centers` and w_y w_z in `weights`. After the tables each
+// warp has pw + cw words for its patch's static flags.
 struct Layout {
-  int prims, boxes, live, centers, weights, waff, cboxes, clive;
-  int total;
+  int prims, pboxes, centers, weights, waff;
+  int total;        // words of the copied tables
+  int pw, cw;       // per warp: prim flag words, center-block flag words
 };
 
-__host__ __device__ inline Layout make_layout(const Args& a, int mode) {
+__host__ __device__ inline Layout make_layout(int n_prims, int n_centers,
+                                              int mode) {
   Layout L{};
   int o = 0;
-  L.prims = o;  o += a.n_prims * kPrimRow;
-  L.boxes = o;  o += a.n_blocks * 8;
-  L.live = o;   o += round4(a.n_blocks);
+  L.prims = o;   o += n_prims * kPrimRow;
+  L.pboxes = o;  o += n_prims * 8;
   if (mode != kRest) {
-    L.centers = o;  o += a.n_centers * 4;
-    L.weights = o;  o += round4(a.n_centers * 2);
+    L.centers = o;  o += n_centers * 4;
+    L.weights = o;  o += round4(n_centers * 2);
     L.waff = o;     o += 12;
   }
-  if (mode == kWendland) {
-    L.cboxes = o;   o += a.n_cb * 8;
-    L.clive = o;    o += round4(a.n_cb);
-  }
   L.total = o;
+  L.pw = (n_prims + 31) >> 5;
+  L.cw = mode == kWendland ? (n_centers / kCenBlock + 31) >> 5 : 0;
   return L;
 }
 
 struct Shared {
   const float* prims;
-  const float4* boxes;
-  const int* live;
+  const float4* pboxes;
   const float4* centers;  // c xyz, w_x
   const float2* weights;  // w_y, w_z
   const float* waff;
-  const float4* cboxes;
-  const int* clive;
+  unsigned* pmask;  // this warp's patch: prims its tile may evaluate
+  unsigned* cmask;  // this warp's patch: center blocks its tile may reach
+  int pw, cw;
 };
 
 struct Ray {
@@ -165,47 +187,57 @@ struct Carry {
   float xr, yr, zr, vx, vy, vz, tr;
 };
 
-// Copy n boxes [n, 6] into the padded lo xyz _ | hi xyz _ layout.
-__device__ void fill_boxes(float* dst, const float* src, int n) {
-  for (int i = threadIdx.x; i < n * 8; i += blockDim.x) {
-    const int b = i >> 3, k = i & 7;
-    dst[i] = (k & 3) == 3 ? 0.0f : src[6 * b + (k >> 2) * 3 + (k & 3)];
-  }
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src)
+               : "memory");
 }
 
-// Which of the boxes flagged in `flags` the warp's hull meets, 32 boxes at
-// a time from `base`: a ballot over one box per lane.
-__device__ __forceinline__ unsigned live_mask(const int* flags,
-                                              const float4* boxes, int n,
-                                              int base, bool cull,
-                                              const Hull& h) {
-  const int b = base + (threadIdx.x & 31);
-  bool ok = b < n && flags[b] != 0;
-  if (ok && cull) ok = hull_meets(h, boxes[2 * b], boxes[2 * b + 1]);
-  return __ballot_sync(kFull, ok);
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;" ::
+                   : "memory");
+}
+
+template <bool kCount>
+__device__ __forceinline__ void count_add(const Args& a, int which,
+                                          unsigned long long v) {
+  if (kCount && (threadIdx.x & 31) == 0) atomicAdd(a.counts + which, v);
 }
 
 // Rest field minus iso at a point, for the lanes with `need` set (the
-// others get no value). Blocks are culled against the hull of the needed
-// lanes' points. Every lane of the warp must call it.
+// others get no value). Of the prims the patch's tile may evaluate, those
+// whose support box meets the hull of the needed lanes' points are
+// evaluated; the sum keeps the plain version's order (a partial sum per
+// block of kPrimBlock, blocks in order). Every lane of the warp must call
+// it.
+template <bool kCount>
 __device__ float field_rest(const Args& a, const Shared& s, float x, float y,
                             float z, bool need) {
   if (!__any_sync(kFull, need)) return 0.0f;
+  const int lane = threadIdx.x & 31;
   Hull h{};
   if (a.dyn_cull) h = warp_hull(need, x, y, z);
   float f = 0.0f;
-  for (int base = 0; base < a.n_blocks; base += 32) {
-    unsigned mask = live_mask(s.live, s.boxes, a.n_blocks, base,
-                              a.dyn_cull != 0, h);
+  for (int c = 0; c < s.pw; ++c) {
+    unsigned mask = s.pmask[c];
+    if (mask == 0) continue;
+    if (a.dyn_cull) {
+      const int p = 32 * c + lane;
+      const bool ok = ((mask >> lane) & 1u) &&
+                      hull_meets(h, s.pboxes[2 * p], s.pboxes[2 * p + 1]);
+      mask = __ballot_sync(kFull, ok);
+    }
+    count_add<kCount>(a, kPrimsRun, 32ull * __popc(mask));
     if (!need) continue;
-    while (mask) {
-      const int b = base + __ffs(mask) - 1;
-      mask &= mask - 1;
-      const float* pb = s.prims + b * kPrimBlock * kPrimRow;
+#pragma unroll
+    for (int q = 0; q < 32 / kPrimBlock; ++q) {
+      unsigned m = (mask >> (kPrimBlock * q)) & ((1u << kPrimBlock) - 1u);
+      if (m == 0) continue;
+      const float* pb = s.prims + (32 * c + kPrimBlock * q) * kPrimRow;
       float bs = 0.0f;
-#pragma unroll 2
-      for (int j = 0; j < kPrimBlock; ++j) {
-        bs += prim_field(pb + j * kPrimRow, x, y, z);
+      while (m) {
+        bs += prim_field(pb + (__ffs(m) - 1) * kPrimRow, x, y, z);
+        m &= m - 1;
       }
       f += bs;
     }
@@ -222,42 +254,63 @@ __device__ __forceinline__ void affine_tail(const float* wa, float xx,
   uz = wa[8] + wa[9] * xx + wa[10] * yy + wa[11] * zz;
 }
 
+// One special-function instruction (2 ulp); 0 at 0, so |x - c| needs no
+// floor (the plain biharmonic version's 1e-24 floor on d2 moves d by at
+// most 1e-12).
+__device__ __forceinline__ float sqrt_approx(float x) {
+  float y;
+  asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // One Wendland fixed-point pull-back iteration x <- y - u(x) at the
-// estimate (xx, yy, zz) for the deformed point (px, py, pz). Center blocks
-// are culled against the hull of the pmask lanes' estimates; only pmask
-// lanes use the result. Every lane of the warp must call it.
+// estimate (xx, yy, zz) for the deformed point (px, py, pz). Of the blocks
+// the patch's tile may reach, each lane tests one center: it runs where it
+// lies within sigma of the hull of the pmask lanes' estimates (farther away
+// it adds exactly 0 to every one of them). The sum keeps the plain
+// version's order, a partial sum per block of kCenBlock. Only pmask lanes
+// use the result. Every lane of the warp must call it.
+template <bool kCount>
 __device__ void pull_one(const Args& a, const Shared& s, float xx, float yy,
                          float zz, float px, float py, float pz, bool pmask,
                          float& ox, float& oy, float& oz) {
+  static_assert(kCenBlock == 32, "one center of a block per lane");
+  const int lane = threadIdx.x & 31;
   const Hull h = warp_hull(pmask, xx, yy, zz);
+  const float reach = a.sigma + fb::kHullEps;
+  count_add<kCount>(a, kPullLanesRun, 32ull);
   float ux, uy, uz;
   affine_tail(s.waff, xx, yy, zz, ux, uy, uz);
-  for (int base = 0; base < a.n_cb; base += 32) {
-    unsigned mask = live_mask(s.clive, s.cboxes, a.n_cb, base, true, h);
+  const int n_cb = a.n_centers / kCenBlock;
+  for (int b = 0; b < n_cb; ++b) {
+    if (!((s.cmask[b >> 5] >> (b & 31)) & 1u)) continue;
+    const float4 mine = s.centers[kCenBlock * b + lane];
+    const float ex = fmaxf(fmaxf(h.lo[0] - mine.x, mine.x - h.hi[0]), 0.0f);
+    const float ey = fmaxf(fmaxf(h.lo[1] - mine.y, mine.y - h.hi[1]), 0.0f);
+    const float ez = fmaxf(fmaxf(h.lo[2] - mine.z, mine.z - h.hi[2]), 0.0f);
+    unsigned m =
+        __ballot_sync(kFull, ex * ex + ey * ey + ez * ez <= reach * reach);
+    count_add<kCount>(a, kCentersRun, 32ull * __popc(m));
     if (!pmask) continue;
-    while (mask) {
-      const int b = base + __ffs(mask) - 1;
-      mask &= mask - 1;
-      const float4* c4 = s.centers + b * a.cen_block;
-      const float2* w2 = s.weights + b * a.cen_block;
-      float sx = 0.0f, sy = 0.0f, sz = 0.0f;
-      for (int j = 0; j < a.cen_block; ++j) {
-        const float4 c = c4[j];
-        const float2 w = w2[j];
-        const float dx = xx - c.x, dy = yy - c.y, dz = zz - c.z;
-        const float d = sqrtf(dx * dx + dy * dy + dz * dz);
-        const float tt = fminf(d * a.inv_sigma, 1.0f);
-        const float omt = 1.0f - tt;
-        const float o2 = omt * omt;
-        const float ph = o2 * o2 * (4.0f * tt + 1.0f);  // Wendland C2
-        sx += c.w * ph;
-        sy += w.x * ph;
-        sz += w.y * ph;
-      }
-      ux += sx;
-      uy += sy;
-      uz += sz;
+    float sx = 0.0f, sy = 0.0f, sz = 0.0f;
+    while (m) {
+      const int j = kCenBlock * b + __ffs(m) - 1;
+      m &= m - 1;
+      const float4 cc = s.centers[j];
+      const float2 w = s.weights[j];
+      const float dx = xx - cc.x, dy = yy - cc.y, dz = zz - cc.z;
+      const float d = sqrt_approx(dx * dx + dy * dy + dz * dz);
+      const float tt = fminf(d * a.inv_sigma, 1.0f);
+      const float omt = 1.0f - tt;
+      const float o2 = omt * omt;
+      const float ph = o2 * o2 * (4.0f * tt + 1.0f);  // Wendland C2
+      sx += cc.w * ph;
+      sy += w.x * ph;
+      sz += w.y * ph;
     }
+    ux += sx;
+    uy += sy;
+    uz += sz;
   }
   ox = px - ux;
   oy = py - uy;
@@ -266,16 +319,18 @@ __device__ void pull_one(const Args& a, const Shared& s, float xx, float yy,
 
 // Deformed field minus iso at ray parameter t: on a refresh, pull the
 // model's estimate back once and refit the slope from the refresh-to-
-// refresh secant; then evaluate the rest field at the model's point.
+// refresh secant (pmask lanes only); then evaluate the rest field at the
+// model's point.
+template <bool kCount>
 __device__ float eval_wendland(const Args& a, const Shared& s, const Ray& r,
                                float t, Carry& c, bool refresh, bool pmask,
                                bool need) {
-  if (refresh) {
+  if (refresh && __any_sync(kFull, pmask)) {
     const float adv = t - c.tr;
     float x2, y2, z2;
-    pull_one(a, s, c.xr + adv * c.vx, c.yr + adv * c.vy, c.zr + adv * c.vz,
-             r.ox + t * r.dx, r.oy + t * r.dy, r.oz + t * r.dz, pmask,
-             x2, y2, z2);
+    pull_one<kCount>(a, s, c.xr + adv * c.vx, c.yr + adv * c.vy,
+                     c.zr + adv * c.vz, r.ox + t * r.dx, r.oy + t * r.dy,
+                     r.oz + t * r.dz, pmask, x2, y2, z2);
     if (pmask) {
       if (adv > 1e-5f) {
         const float inv = 1.0f / adv;
@@ -290,16 +345,8 @@ __device__ float eval_wendland(const Args& a, const Shared& s, const Ray& r,
     }
   }
   const float a2 = t - c.tr;
-  return field_rest(a, s, c.xr + a2 * c.vx, c.yr + a2 * c.vy,
-                    c.zr + a2 * c.vz, need);
-}
-
-// One special-function instruction; 0 at 0, so |x - c| needs no floor (the
-// plain version's 1e-24 floor on d2 moves d by at most 1e-12).
-__device__ __forceinline__ float sqrt_approx(float x) {
-  float y;
-  asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
+  return field_rest<kCount>(a, s, c.xr + a2 * c.vx, c.yr + a2 * c.vy,
+                            c.zr + a2 * c.vz, need);
 }
 
 // Biharmonic-deformed field minus iso at ray parameter t: fp_iters
@@ -308,6 +355,7 @@ __device__ __forceinline__ float sqrt_approx(float x) {
 // pull back. The center loop is the kernel's whole cost on a frame whose
 // rays march mostly through empty space, and it is paced by the bytes that
 // shared memory hands to every lane: 24 per center.
+template <bool kCount>
 __device__ float eval_biharmonic(const Args& a, const Shared& s,
                                  const Ray& r, float t, bool need) {
   const float px = r.ox + t * r.dx, py = r.oy + t * r.dy, pz = r.oz + t * r.dz;
@@ -332,7 +380,7 @@ __device__ float eval_biharmonic(const Args& a, const Shared& s,
       zz = pz - (uz + sz);
     }
   }
-  return field_rest(a, s, xx, yy, zz, need);
+  return field_rest<kCount>(a, s, xx, yy, zz, need);
 }
 
 // Field minus iso at ray parameter t for the lanes with `need` set. Every
@@ -343,92 +391,32 @@ __device__ __forceinline__ float eval_at(const Args& a, const Shared& s,
                                          bool refresh, bool pmask, bool need) {
   if (kCount) {
     const unsigned m = __ballot_sync(kFull, need);
-    if (m != 0 && (threadIdx.x & 31) == 0) {
-      atomicAdd(a.counts, static_cast<unsigned long long>(__popc(m)));
-      atomicAdd(a.counts + 1, 32ull);
+    if (m != 0) {
+      count_add<kCount>(a, kNeeded, __popc(m));
+      count_add<kCount>(a, kLanesRun, 32ull);
     }
   }
   if (kMode == kWendland) {
-    return eval_wendland(a, s, r, t, c, refresh, pmask, need);
+    return eval_wendland<kCount>(a, s, r, t, c, refresh, pmask, need);
   }
-  if (kMode == kBiharmonic) return eval_biharmonic(a, s, r, t, need);
-  return field_rest(a, s, r.ox + t * r.dx, r.oy + t * r.dy, r.oz + t * r.dz,
-                    need);
+  if (kMode == kBiharmonic) return eval_biharmonic<kCount>(a, s, r, t, need);
+  return field_rest<kCount>(a, s, r.ox + t * r.dx, r.oy + t * r.dy,
+                            r.oz + t * r.dz, need);
 }
 
-// Whether the march goes on: while any ray of the tile is alive in K2,
-// while any ray of the warp is in K1 and K4.
-template <int kMode>
-__device__ __forceinline__ bool any_alive(bool alive) {
-  if (kMode == kWendland) return __syncthreads_or(alive) != 0;
-  return __any_sync(kFull, alive) != 0;
-}
-
+// March and refine the 32 rays of one patch: lane's ray is g of tile `tile`.
+// Rays that start dead were written by the kernel's first pass.
 template <int kMode, bool kCount>
-__global__ void __launch_bounds__(kMaxThreads, kMinCtas)
-    trace_additive_kernel(Args a) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int tile = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int T = blockDim.x;
-  // A tile of 256 rays is a 16x16 pixel block in row-major order: warp w
-  // takes the 8x4 patch at column 8 (w & 1), row 4 (w >> 1).
-  int slot = tid;
-  if (T == 256) {
-    const int w = tid >> 5, l = tid & 31;
-    slot = ((w >> 1) * 4 + (l >> 3)) * 16 + (w & 1) * 8 + (l & 7);
-  }
+__device__ void trace_patch(const Args& a, const Shared& s, int tile, int g) {
   const int n = a.n_rays;
-  const int g = tile * T + slot;
-  const float t_exit = a.rays[7 * n + g];
   const bool alive0 = a.rays[8 * n + g] > 0.0f;
-
-  // A tile with no live ray skips the copy and the march: every lane
-  // misses.
-  if (!__syncthreads_or(alive0)) {
-    a.t_out[g] = t_exit;
-    a.hit_out[g] = 0.0f;
-    return;
-  }
-
-  const Layout L = make_layout(a, kMode);
-  {
-    const float4* src = reinterpret_cast<const float4*>(a.prims);
-    for (int i = tid; i < a.n_prims * (kPrimRow / 4); i += T) smem4[i] = src[i];
-  }
-  fill_boxes(smem + L.boxes, a.boxes, a.n_blocks);
-  int* live = reinterpret_cast<int*>(smem + L.live);
-  for (int i = tid; i < a.n_blocks; i += T) live[i] = a.live[tile * a.n_blocks + i];
-  Shared s{smem + L.prims, reinterpret_cast<const float4*>(smem + L.boxes),
-           live, nullptr, nullptr, nullptr, nullptr, nullptr};
-  if (kMode != kRest) {
-    for (int i = tid; i < a.n_centers * 6; i += T) {
-      const int j = i / 6, k = i - 6 * j;
-      const float v = k < 3 ? a.centers[3 * j + k] : a.weights[3 * j + k - 3];
-      smem[k < 4 ? L.centers + 4 * j + k : L.weights + 2 * j + k - 4] = v;
-    }
-    for (int i = tid; i < 12; i += T) smem[L.waff + i] = a.waff[i];
-    s.centers = reinterpret_cast<const float4*>(smem + L.centers);
-    s.weights = reinterpret_cast<const float2*>(smem + L.weights);
-    s.waff = smem + L.waff;
-  }
-  if (kMode == kWendland) {
-    fill_boxes(smem + L.cboxes, a.cboxes, a.n_cb);
-    int* clive = reinterpret_cast<int*>(smem + L.clive);
-    for (int i = tid; i < a.n_cb; i += T) clive[i] = a.clive[tile * a.n_cb + i];
-    s.cboxes = reinterpret_cast<const float4*>(smem + L.cboxes);
-    s.clive = clive;
-  }
-  __syncthreads();
-
+  const float t_exit = a.rays[7 * n + g];
+  const float t_enter = a.rays[6 * n + g];
   const Ray r{a.rays[g], a.rays[n + g], a.rays[2 * n + g],
               a.rays[3 * n + g], a.rays[4 * n + g], a.rays[5 * n + g]};
-  const float t_enter = a.rays[6 * n + g];
-  const float inv_stretch = a.tile_rows[4 * tile];
-  const float shrink = a.tile_rows[4 * tile + 1];
-  const float slack = a.tile_rows[4 * tile + 2];
-  const float ldrift = a.tile_rows[4 * tile + 3];
+  const float4 row = reinterpret_cast<const float4*>(a.tile_rows)[tile];
+  const float inv_stretch = row.x, shrink = row.y, slack = row.z,
+              ldrift = row.w;
 
   Carry c{r.ox + t_enter * r.dx, r.oy + t_enter * r.dy, r.oz + t_enter * r.dz,
           r.dx, r.dy, r.dz, t_enter};
@@ -438,10 +426,12 @@ __global__ void __launch_bounds__(kMaxThreads, kMinCtas)
   bool found = alive0 && f0 >= 0.0f;
   bool alive = alive0 && f0 < 0.0f;
 
-  // `it` counts sub-steps; the loop test runs once per iteration.
+  // `it` counts sub-steps; the loop test runs once per iteration and is the
+  // warp's own. In K2 the first sub-step of an iteration refreshes the
+  // model of the lanes still marching.
   const int n_sub = kMode == kWendland ? a.k_refresh : 2;
   int it = 0;
-  while (it < a.max_steps && any_alive<kMode>(alive)) {
+  while (it < a.max_steps && __any_sync(kFull, alive)) {
     for (int k = 0; k < n_sub; ++k) {
       const float rr = support_radius_bound(f + a.iso);
       float d = (rr - a.r_iso) * inv_stretch;
@@ -456,7 +446,7 @@ __global__ void __launch_bounds__(kMaxThreads, kMinCtas)
       const float dt = fmaxf(a.base_step, 0.95f * d);
       const float t_new = fminf(t + dt, t_exit);
       const float f_new =
-          eval_at<kMode, kCount>(a, s, r, t_new, c, k == 0, alive0, alive);
+          eval_at<kMode, kCount>(a, s, r, t_new, c, k == 0, alive, alive);
       if (alive) {
         const bool crossed = f_new >= 0.0f;
         const bool done = t_new >= t_exit && f_new < 0.0f;
@@ -486,49 +476,171 @@ __global__ void __launch_bounds__(kMaxThreads, kMinCtas)
       fb = fm;
     }
   }
-  const float denom = fb - fa;
-  const float t_sec =
-      ta - fa * (tb - ta) / (fabsf(denom) < 1e-12f ? 1e-12f : denom);
-  const float t_root = fabsf(denom) < 1e-9f ? 0.5f * (ta + tb) : t_sec;
-  a.t_out[g] = found ? t_root : t_exit;
-  a.hit_out[g] = found ? 1.0f : 0.0f;
+  if (alive0) {
+    const float denom = fb - fa;
+    const float t_sec =
+        ta - fa * (tb - ta) / (fabsf(denom) < 1e-12f ? 1e-12f : denom);
+    const float t_root = fabsf(denom) < 1e-9f ? 0.5f * (ta + tb) : t_sec;
+    a.t_out[g] = found ? t_root : t_exit;
+    a.hit_out[g] = found ? 1.0f : 0.0f;
+  }
 }
 
-template <int kMode, bool kCount>
-int launch_one(const Args& a, int tile, void* stream) {
-  const size_t bytes = sizeof(float) * make_layout(a, kMode).total;
+template <int kMode, bool kCount, int kCtas>
+__global__ void __launch_bounds__(kThreads, kCtas)
+    trace_additive_kernel(Args a) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int n = a.n_rays;
+  const Layout L = make_layout(a.n_prims, a.n_centers, kMode);
+
+  // The tables, once for the CTA's whole life, in flight while the first
+  // pass runs.
+  for (int i = tid; i < L.total / 4; i += kThreads) {
+    cp_async16(smem4 + i, a.tables + i);
+  }
+
+  // First pass, all CTAs together over all rays: a ray that starts dead
+  // misses. n is a multiple of 32, so rows split into aligned float4s.
+  {
+    const float4* ex4 = reinterpret_cast<const float4*>(a.rays + 7 * n);
+    const float4* al4 = reinterpret_cast<const float4*>(a.rays + 8 * n);
+    for (int i = blockIdx.x * kThreads + tid; i < n / 4;
+         i += gridDim.x * kThreads) {
+      const float4 al = al4[i];
+      const float4 ex = ex4[i];
+      if (!(al.x > 0.0f)) { a.t_out[4 * i] = ex.x; a.hit_out[4 * i] = 0.0f; }
+      if (!(al.y > 0.0f)) { a.t_out[4 * i + 1] = ex.y; a.hit_out[4 * i + 1] = 0.0f; }
+      if (!(al.z > 0.0f)) { a.t_out[4 * i + 2] = ex.z; a.hit_out[4 * i + 2] = 0.0f; }
+      if (!(al.w > 0.0f)) { a.t_out[4 * i + 3] = ex.w; a.hit_out[4 * i + 3] = 0.0f; }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  unsigned* flags = reinterpret_cast<unsigned*>(smem + L.total) +
+                    (tid >> 5) * (L.pw + L.cw);
+  const Shared s{smem + L.prims,
+                 reinterpret_cast<const float4*>(smem + L.pboxes),
+                 reinterpret_cast<const float4*>(smem + L.centers),
+                 reinterpret_cast<const float2*>(smem + L.weights),
+                 smem + L.waff,
+                 flags, flags + L.pw, L.pw, L.cw};
+
+  // Each warp takes patches of 32 rays off the list until it is empty. A
+  // patch of a 256-ray tile (a 16x16 pixel block in row-major order) is
+  // the 8x4 pixel patch at column 8 (w & 1), row 4 (w >> 1); of any other
+  // tile, 32 rays in a row.
+  const int n_work = *a.n_work;
+  const int per_tile = a.tile >> 5;
+  const int n_cb = a.n_centers / kCenBlock;
+  for (;;) {
+    int item = 0;
+    if (lane == 0) item = atomicAdd(a.next, 1);
+    item = __shfl_sync(kFull, item, 0);
+    if (item >= n_work) break;
+    const int patch = a.work[item];
+    const int tile = patch / per_tile;
+    const int w = patch - tile * per_tile;
+    int slot = 32 * w + lane;
+    if (a.tile == 256) {
+      slot = ((w >> 1) * 4 + (lane >> 3)) * 16 + (w & 1) * 8 + (lane & 7);
+    }
+    // The tile's static flags as this warp's bit masks.
+    for (int c = 0; c < L.pw; ++c) {
+      const int p = 32 * c + lane;
+      const bool ok =
+          p < a.n_prims && a.live[tile * a.n_blocks + p / kPrimBlock] != 0;
+      const unsigned m = __ballot_sync(kFull, ok);
+      if (lane == 0) s.pmask[c] = m;
+    }
+    for (int c = 0; c < L.cw; ++c) {
+      const int b = 32 * c + lane;
+      const bool ok = b < n_cb && a.clive[tile * n_cb + b] != 0;
+      const unsigned m = __ballot_sync(kFull, ok);
+      if (lane == 0) s.cmask[c] = m;
+    }
+    __syncwarp();
+    trace_patch<kMode, kCount>(a, s, tile, tile * a.tile + slot);
+    __syncwarp();  // the next patch rewrites the flags
+  }
+}
+
+// Launch as many CTAs as stay resident (or as there are patches of eight
+// warps' work, if fewer).
+template <int kMode, bool kCount, int kCtas>
+int launch_one(const Args& a, void* stream) {
+  const auto kernel = trace_additive_kernel<kMode, kCount, kCtas>;
+  const Layout L = make_layout(a.n_prims, a.n_centers, kMode);
+  const size_t bytes =
+      sizeof(float) * (L.total + (kThreads / 32) * (L.pw + L.cw));
   cudaError_t err = cudaFuncSetAttribute(
-      trace_additive_kernel<kMode, kCount>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  trace_additive_kernel<kMode, kCount>
-      <<<a.n_rays / tile, tile, bytes, static_cast<cudaStream_t>(stream)>>>(a);
+  int dev = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  if (per_sm > kCtas) per_sm = kCtas;
+  const int patches = a.n_rays / 32;
+  int grid = sms * per_sm;
+  const int wanted = (patches + kThreads / 32 - 1) / (kThreads / 32);
+  if (grid > wanted) grid = wanted;
+  kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int kMode>
-int launch(const Args& a, int tile, void* stream) {
+int launch(const Args& a, bool two_ctas, void* stream) {
+  if (two_ctas && (kMode != kWendland || a.counts != nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (a.n_rays == 0) return 0;
-  if (a.counts != nullptr) return launch_one<kMode, true>(a, tile, stream);
-  return launch_one<kMode, false>(a, tile, stream);
+  if (a.counts != nullptr) {
+    return launch_one<kMode, true, default_ctas(kMode)>(a, stream);
+  }
+  if constexpr (kMode == kWendland) {
+    if (two_ctas) return launch_one<kMode, false, kMeasuredCtas>(a, stream);
+  }
+  return launch_one<kMode, false, default_ctas(kMode)>(a, stream);
 }
 
-Args common_args(const float* rays, const int* live, const float* boxes,
-                 const float* tile_rows, const float* prims, float* t_out,
-                 float* hit_out, unsigned long long* counts, int n_rays,
-                 int n_prims, int n_blocks, int dyn_cull, float iso,
-                 float r_iso, float base_step, int max_steps,
-                 int bisect_steps) {
+}  // namespace
+
+// The additive tile trace in mode 0 (K1 rest), 1 (K2 Wendland) or 2 (K4
+// biharmonic). Returns a cudaError_t code (0 on success). `counts` is
+// null, or five zeroed 64-bit counters for the counting build (Counter).
+// `two_ctas` non-zero picks K2's build for two CTAs an SM (mode 1 without
+// `counts` only; anything else is cudaErrorInvalidValue).
+extern "C" int fb_trace_additive(
+    int mode, const float* rays, const int* live, const float* tile_rows,
+    const float* tables, const int* work, const int* n_work, int* next,
+    float* t_out, float* hit_out, unsigned long long* counts, int n_rays,
+    int tile, int n_prims, int n_blocks, int dyn_cull, float iso, float r_iso,
+    float base_step, int max_steps, int bisect_steps, const int* clive,
+    int n_centers, float sigma, float inv_sigma, int k_refresh, int fp_iters,
+    int two_ctas, void* stream) {
   Args a{};
   a.rays = rays;
   a.live = live;
-  a.boxes = boxes;
   a.tile_rows = tile_rows;
-  a.prims = prims;
+  a.tables = reinterpret_cast<const float4*>(tables);
+  a.work = work;
+  a.n_work = n_work;
+  a.next = next;
   a.t_out = t_out;
   a.hit_out = hit_out;
   a.counts = counts;
   a.n_rays = n_rays;
+  a.tile = tile;
   a.n_prims = n_prims;
   a.n_blocks = n_blocks;
   a.dyn_cull = dyn_cull;
@@ -537,73 +649,18 @@ Args common_args(const float* rays, const int* live, const float* boxes,
   a.base_step = base_step;
   a.max_steps = max_steps;
   a.bisect_steps = bisect_steps;
-  return a;
-}
-
-}  // namespace
-
-// Every entry point returns a cudaError_t code (0 on success). `counts`
-// is null, or two zeroed 64-bit counters for the counting build: needed
-// lane-evals, and 32 for every warp-eval that ran.
-
-// K1: rest trace.
-extern "C" int fb_trace_additive_rest(
-    const float* rays, const int* live, const float* boxes,
-    const float* tile_rows, const float* prims, float* t_out, float* hit_out,
-    unsigned long long* counts, int n_rays, int tile, int n_prims,
-    int n_blocks, int dyn_cull, float iso, float r_iso, float base_step,
-    int max_steps, int bisect_steps, void* stream) {
-  const Args a = common_args(rays, live, boxes, tile_rows, prims, t_out,
-                             hit_out, counts, n_rays, n_prims, n_blocks,
-                             dyn_cull, iso, r_iso, base_step, max_steps,
-                             bisect_steps);
-  return launch<kRest>(a, tile, stream);
-}
-
-// K2: Wendland-deformed trace.
-extern "C" int fb_trace_additive_wendland(
-    const float* rays, const int* live, const float* boxes,
-    const float* tile_rows, const float* prims, float* t_out, float* hit_out,
-    unsigned long long* counts, int n_rays, int tile, int n_prims,
-    int n_blocks, int dyn_cull, float iso, float r_iso, float base_step,
-    int max_steps, int bisect_steps, const float* centers,
-    const float* weights, const float* waff, const float* cboxes,
-    const int* clive, int n_cb, int cen_block, float inv_sigma, int k_refresh,
-    void* stream) {
-  Args a = common_args(rays, live, boxes, tile_rows, prims, t_out, hit_out,
-                       counts, n_rays, n_prims, n_blocks, dyn_cull, iso,
-                       r_iso, base_step, max_steps, bisect_steps);
-  a.centers = centers;
-  a.weights = weights;
-  a.waff = waff;
-  a.n_centers = n_cb * cen_block;
-  a.cboxes = cboxes;
   a.clive = clive;
-  a.n_cb = n_cb;
-  a.cen_block = cen_block;
+  a.n_centers = mode == kRest ? 0 : n_centers;
+  a.sigma = sigma;
   a.inv_sigma = inv_sigma;
   a.k_refresh = k_refresh;
-  return launch<kWendland>(a, tile, stream);
-}
-
-// K4: biharmonic-deformed trace.
-extern "C" int fb_trace_additive_biharmonic(
-    const float* rays, const int* live, const float* boxes,
-    const float* tile_rows, const float* prims, float* t_out, float* hit_out,
-    unsigned long long* counts, int n_rays, int tile, int n_prims,
-    int n_blocks, int dyn_cull, float iso, float r_iso, float base_step,
-    int max_steps, int bisect_steps, const float* centers,
-    const float* weights, const float* waff, int n_centers, int fp_iters,
-    void* stream) {
-  Args a = common_args(rays, live, boxes, tile_rows, prims, t_out, hit_out,
-                       counts, n_rays, n_prims, n_blocks, dyn_cull, iso,
-                       r_iso, base_step, max_steps, bisect_steps);
-  a.centers = centers;
-  a.weights = weights;
-  a.waff = waff;
-  a.n_centers = n_centers;
   a.fp_iters = fp_iters;
-  return launch<kBiharmonic>(a, tile, stream);
+  switch (mode) {
+    case kRest: return launch<kRest>(a, two_ctas != 0, stream);
+    case kWendland: return launch<kWendland>(a, two_ctas != 0, stream);
+    case kBiharmonic: return launch<kBiharmonic>(a, two_ctas != 0, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" const char* fb_error_string(int code) {

@@ -45,8 +45,9 @@
 //     live in shared memory for the whole march;
 //   * the warped point of the last group seen is cached, so scenes whose
 //     groups are contiguous warp once per group and eval.
-// A counting build (the `counts` argument) adds up the needed lane-evals
-// and 32 for every warp-eval that ran; the shipped path does not count.
+// A counting build (the `counts` argument) adds up the needed lane-evals,
+// 32 for every warp-eval that ran and 32 for every prim a warp's mask let
+// run; the shipped path does not count.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -91,7 +92,8 @@ struct Args {
   const float* boxes;        // [n_prims, 6] prim support boxes lo|hi
   float* t_out;              // [n]
   float* hit_out;            // [n]
-  unsigned long long* counts;  // counting build: needed lane-evals, lanes run
+  unsigned long long* counts;  // counting build: needed lane-evals, lanes
+                               // run, lane-prims run
   int n_rays, n_prims, n_real, n_steps, n_groups, chain_len;
   int root_is_op, root_reg, adaptive;
   float iso, r_iso, base_step, inv_stretch;
@@ -323,6 +325,7 @@ __device__ float general_field(const Args& a, const Shared& s, float x,
         (flag == kBoxed && hull_meets(h, s.boxes[2 * i], s.boxes[2 * i + 1]));
     const unsigned m = __ballot_sync(kFull, ok);
     if (lane == 0) s.wmask[c] = m;
+    if (kCount && lane == 0) atomicAdd(a.counts + 2, 32ull * __popc(m));
   }
   __syncwarp();
   const float f = need ? fold(a, s, x, y, z) : 0.0f;
@@ -463,8 +466,9 @@ int launch(const Args& a, int tile, void* stream) {
 }  // namespace
 
 // K3: general trace. Returns a cudaError_t code (0 on success). `counts`
-// is null, or two zeroed 64-bit counters for the counting build: needed
-// lane-evals, and 32 for every warp-eval that ran.
+// is null, or zeroed 64-bit counters for the counting build, of which it
+// adds to the first three: needed lane-evals, 32 for every warp-eval that
+// ran, 32 for every prim a warp's mask let run.
 extern "C" int fb_trace_general(
     const float* rays, const float* prims, const int* steps,
     const float* step_params, const float* warps, const int* live,

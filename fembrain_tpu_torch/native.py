@@ -28,11 +28,9 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_COMMON = [_P] * 8 + [_I] * 5 + [_F] * 3 + [_I] * 2
 _SIGNATURES = {
-    "fb_trace_additive_rest": _COMMON + [_P],
-    "fb_trace_additive_wendland": _COMMON + [_P] * 5 + [_I, _I, _F, _I, _P],
-    "fb_trace_additive_biharmonic": _COMMON + [_P] * 3 + [_I, _I, _P],
+    "fb_trace_additive": ([_I] + [_P] * 10 + [_I] * 5 + [_F] * 3 + [_I] * 2
+                          + [_P, _I, _F, _F, _I, _I, _I, _P]),
     "fb_trace_general": [_P] * 10 + [_I] * 10 + [_F] * 4 + [_I] * 2 + [_P],
 }
 

@@ -8,12 +8,16 @@ exit. Two kernels:
 
 * the additive kernel (csrc/trace_additive.cu) sphere-marches the sum of
   Morton-ordered prim blocks of PRIM_BLOCK prims, with whole blocks
-  skipped when the tile's ray hull misses a block's support box, in three
+  skipped when the tile's ray hull misses a block's support box and single
+  prims when the hull of a patch of PATCH rays misses theirs, in three
   modes: K1 rest; K2 Wendland-deformed (`WendlandSpec`: every march point
   pulled back through a compact-support interpolant, centers culled per
-  CEN_BLOCK block, a per-lane linear rest-point model between refreshes);
-  K4 biharmonic-deformed (`BiharmonicSpec`: every eval pulls back from
-  scratch through all centers, global step bounds);
+  CEN_BLOCK block and tile and one by one per patch, a per-lane linear
+  rest-point model between refreshes); K4 biharmonic-deformed
+  (`BiharmonicSpec`: every eval pulls back from scratch through all
+  centers, global step bounds). Its CTAs stay resident and take the
+  patches that hold a live ray from a list (`live_patches`), with the
+  scene's tables copied once per CTA from one block (`pack_tables`);
 * K3, the general kernel (csrc/trace_general.cu), marches any BlobTree
   of at most UNROLL_LIMIT ops: warp chains, the typed prim distances and
   the op fold along the schedule, fixed steps where the field is not
@@ -29,7 +33,8 @@ iteration and refresh schedule, bisection and secant, vectorised over
 all rays at once. Given a `WorkCount`, a plain version also counts the
 work its inputs need (the field evaluations whose value the march uses,
 the prims in reach of each, the centers of each pull-back), from which
-`WorkCount.flops` gives the kernels' fp32 lower bound.
+`WorkCount.flops` gives the kernels' fp32 lower bound, and what the
+kernels' culls let run for it (`WorkCount.prims_run` and its like).
 """
 from __future__ import annotations
 
@@ -54,13 +59,17 @@ from .sphere_trace import (
 
 TILE = 256        # rays per CTA: one 16x16 pixel block, one ray a thread
 PRIM_BLOCK = 8    # prims per cull block (the pack's Morton block size)
-CEN_BLOCK = 32    # Wendland centers per cull block
+CEN_BLOCK = 32    # Wendland centers per step-bound block and tile flag
+PATCH = 32        # rays a warp marches together: an 8x4 pixel patch
+HULL_EPS = 1e-4   # slack of every hull/box overlap test
 K_REFRESH = 4     # evals per pull-back refresh cycle when a spec gives 0
 PRIM_ROW = 24     # floats per packed prim row: m[3][4] pos dir res type aux
 STEP_ROW = 6      # ints per general op step: type dst lkind lidx rkind ridx
 WARP_ROW = 8      # floats per warp wire: type axis_a axis_b pad params[4]
 MAX_REGS = 32     # op-value registers per thread in the general kernel
-MAX_TILE = 256    # threads per CTA the kernels are compiled for
+MAX_TILE = 256    # largest tile the kernels take
+MODE_REST, MODE_WENDLAND, MODE_BIHARMONIC = 0, 1, 2  # trace_additive.cu Mode
+N_COUNTERS = 5    # the counting builds' counters, see `trace_additive_cuda`
 # GeneralInputs.live: the prim adds exactly 0 on this tile's rays; it is
 # evaluated where its support box meets the evaluation points; it is
 # always evaluated (it sits under a warp chain).
@@ -120,6 +129,15 @@ class WorkCount:
     pull_iters: int = 0             # pull-back iterations of needed lanes
     biharmonic_center_evals: int = 0  # pull_iters x M
     wendland_center_evals: int = 0  # centers within sigma of the estimate
+    # What the kernels' culls let run for that, all PATCH lanes of a warp
+    # counted wherever one of them needs the value: lanes of the patch
+    # evals, (lane, prim) pairs whose prim passes the tile's flags and the
+    # patch hull's box test, lanes of the patch pull-backs (K2), (lane,
+    # center) pairs whose center lies within sigma of the patch hull (K2).
+    lanes_run: int = 0
+    prims_run: int = 0
+    pull_lanes_run: int = 0
+    centers_run: int = 0
 
     def add_prims(self, types: torch.Tensor, counts: torch.Tensor) -> None:
         for t, c in zip(types.tolist(), counts.tolist()):
@@ -148,6 +166,142 @@ def _count_in_boxes(count, boxes, types, px, py, pz, need):
         inside = (inside & (p[:, None] >= boxes[None, :, i])
                   & (p[:, None] <= boxes[None, :, 3 + i]))
     count.add_prims(types, inside.sum(0))
+
+
+def patch_slots(tile: int, device=None) -> torch.Tensor:
+    """[tile // PATCH, PATCH] the slot within a tile of each lane of each
+    patch, as the kernels assign them: a tile of 256 rays is a 16x16 pixel
+    block in row-major order and patch w its 8x4 pixel patch at column
+    8 (w & 1), row 4 (w >> 1); any other tile is cut into runs of PATCH."""
+    w = torch.arange(tile // PATCH, device=device)[:, None]
+    lane = torch.arange(PATCH, device=device)[None]
+    if tile == 256:
+        return ((w >> 1) * 4 + (lane >> 3)) * 16 + (w & 1) * 8 + (lane & 7)
+    return w * PATCH + lane
+
+
+def patch_rays(n: int, tile: int, device=None) -> torch.Tensor:
+    """[n // PATCH, PATCH] the ray of each lane of each patch, patches
+    numbered tile by tile."""
+    first = torch.arange(n // tile, device=device)[:, None, None] * tile
+    return (first + patch_slots(tile, device)[None]).reshape(-1, PATCH)
+
+
+def live_patches(rays: torch.Tensor, tile: int):
+    """The kernels' work list: (work [n // PATCH] int32, n_work [1] int32),
+    the patches that hold a ray that starts alive, in order, in the first
+    n_work entries of `work` (the rest is -1). Built without reading
+    anything back to the host."""
+    n = rays.shape[1]
+    dev = rays.device
+    alive = (rays[8] > 0)[patch_rays(n, tile, dev)].any(-1)
+    rank = torch.cumsum(alive, 0)
+    n_patches = alive.shape[0]
+    # Dead patches scatter into a spare last slot.
+    work = torch.full((n_patches + 1,), -1, dtype=torch.int32, device=dev)
+    dst = torch.where(alive, rank - 1, n_patches)
+    work.scatter_(0, dst, torch.arange(n_patches, dtype=torch.int32,
+                                       device=dev))
+    return work[:n_patches], alive.sum().reshape(1).to(torch.int32)
+
+
+def _pad_boxes(boxes: torch.Tensor) -> torch.Tensor:
+    """[G, 6] lo|hi boxes as [G, 8] lo xyz 0 | hi xyz 0."""
+    zero = torch.zeros_like(boxes[:, :1])
+    return torch.cat([boxes[:, :3], zero, boxes[:, 3:], zero], 1)
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def table_layout(n_prims: int, n_centers: int = 0) -> dict:
+    """Word offsets of the tables in the block the additive kernel copies
+    into shared memory (csrc/trace_additive.cu `make_layout`); every table
+    starts on a 16-byte boundary. The rest mode has no centers."""
+    lay, o = {}, 0
+    lay["prims"], o = o, o + n_prims * PRIM_ROW
+    lay["pboxes"], o = o, o + n_prims * 8
+    if n_centers:
+        lay["centers"], o = o, o + n_centers * 4
+        lay["weights"], o = o, o + _round4(n_centers * 2)
+        lay["waff"], o = o, o + 12
+    lay["total"] = o
+    return lay
+
+
+def pack_tables(prims, prim_boxes, centers=None, w=None,
+                waff=None) -> torch.Tensor:
+    """The tables of one additive launch as one flat float32 block in the
+    kernel's shared-memory layout: prim rows; prim boxes as lo xyz _ | hi
+    xyz _; in the deformed modes a center with its weights as c xyz w_x
+    (16 bytes) and w_y w_z (8 bytes), then the affine tail."""
+    m = 0 if centers is None else centers.shape[0]
+    lay = table_layout(prims.shape[0], m)
+    out = torch.zeros(lay["total"], dtype=torch.float32, device=prims.device)
+
+    def put(name, t):
+        out[lay[name] : lay[name] + t.numel()] = t.reshape(-1)
+
+    put("prims", prims)
+    put("pboxes", _pad_boxes(prim_boxes))
+    if centers is not None:
+        put("centers", torch.cat([centers, w[:, :1]], 1))
+        put("weights", w[:, 1:])
+        put("waff", waff)
+    return out
+
+
+def unpack_tables(tables, n_prims: int, n_centers: int = 0) -> dict:
+    """The inverse of `pack_tables`: prims, prim_boxes and, in the
+    deformed modes, centers, w, waff."""
+    lay = table_layout(n_prims, n_centers)
+
+    def take(name, rows, cols):
+        return tables[lay[name] : lay[name] + rows * cols].reshape(rows, cols)
+
+    b = take("pboxes", n_prims, 8)
+    out = {"prims": take("prims", n_prims, PRIM_ROW),
+           "prim_boxes": torch.cat([b[:, :3], b[:, 4:7]], 1)}
+    if n_centers:
+        c4 = take("centers", n_centers, 4)
+        out["centers"] = c4[:, :3]
+        out["w"] = torch.cat([c4[:, 3:], take("weights", n_centers, 2)], 1)
+        out["waff"] = take("waff", 3, 4)
+    return out
+
+
+def _patch_hull(px, py, pz, need, lanes):
+    """Hull of the needed lanes' points per patch (`lanes` [np, PATCH] ray
+    of each lane): lo, hi [np, 3] and which patches need anything."""
+    pts = torch.stack([px, py, pz], -1)[lanes]
+    m = need[lanes]
+    lo = torch.where(m[..., None], pts, torch.inf).amin(1)
+    hi = torch.where(m[..., None], pts, -torch.inf).amax(1)
+    return lo, hi, m.any(-1)
+
+
+def _boxes_run(flags, boxes, hull) -> int:
+    """How many (patch, box) pairs a kernel's cull lets run: boxes [G, 6]
+    allowed by the patch's flags [np, G] that the patch hull meets (or
+    every allowed box where `hull` is (None, None, run))."""
+    lo, hi, run = hull
+    ok = flags & run[:, None]
+    if lo is not None:
+        ok = ok & (_hull_box_live(lo, hi, boxes[:, :3], boxes[:, 3:]) > 0)
+    return int(ok.sum())
+
+
+def _balls_run(flags, centers, reach, hull) -> int:
+    """How many (patch, center) pairs K2's cull lets run: centers [M, 3]
+    allowed by the patch's flags [np, M] that lie within `reach` of the
+    patch hull (of what lies farther, every point of the hull is farther
+    than `reach`)."""
+    lo, hi, run = hull
+    gap = torch.clamp(torch.maximum(lo[:, None] - centers[None],
+                                    centers[None] - hi[:, None]), min=0.0)
+    near = torch.sum(gap * gap, -1) <= reach * reach
+    return int((flags & run[:, None] & near).sum())
 
 
 # Kernel launches made through `run_tiles`, per kernel and mode.
@@ -195,8 +349,8 @@ class WendlandInputs:
     centers: torch.Tensor   # [Mp, 3]
     w: torch.Tensor         # [Mp, 3]
     waff: torch.Tensor      # [3, 4]
-    cboxes: torch.Tensor    # [n_cb, 6] center-block sigma boxes lo|hi
-    clive: torch.Tensor     # [tiles, n_cb] int32 static tile flags
+    clive: torch.Tensor     # [tiles, n_cb] int32 static flags per CEN_BLOCK
+    sigma: float
     inv_sigma: float
     k_refresh: int
 
@@ -212,11 +366,14 @@ class BiharmonicInputs:
 @dataclasses.dataclass(frozen=True)
 class TileInputs:
     """Everything one additive tile-trace launch reads, laid out for the
-    kernel."""
+    kernel. `work`, `n_work` and `tables` are not given but derived here
+    from the other fields, also by `dataclasses.replace`: the work list is
+    always that of `rays`, and the kernel's table block always holds what
+    the plain version reads (`prims`, `prim_boxes`, the displacement's
+    centers and weights)."""
 
     rays: torch.Tensor       # [9, n] ro xyz, rd xyz, t_enter, t_exit, alive0
     live: torch.Tensor       # [tiles, nb] int32 blocks a tile may evaluate
-    boxes: torch.Tensor      # [nb, 6] block support boxes lo|hi
     tile_rows: torch.Tensor  # [tiles, 4] inv_stretch, shrink, slack, L
     prims: torch.Tensor      # [P, PRIM_ROW] packed prim rows
     prim_boxes: torch.Tensor  # [P, 6] prim support boxes lo|hi, row order
@@ -231,6 +388,27 @@ class TileInputs:
     bisect_steps: int
     wendland: WendlandInputs | None = None
     biharmonic: BiharmonicInputs | None = None
+    # [n / PATCH] int32 `live_patches` of `rays`, and [1] int32 how many.
+    work: torch.Tensor = dataclasses.field(init=False, repr=False)
+    n_work: torch.Tensor = dataclasses.field(init=False, repr=False)
+    # `pack_tables` of prims, boxes and the displacement's centers.
+    tables: torch.Tensor = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        work, n_work = live_patches(self.rays, self.tile)
+        d = self.wendland or self.biharmonic
+        tables = (pack_tables(self.prims, self.prim_boxes) if d is None else
+                  pack_tables(self.prims, self.prim_boxes, d.centers, d.w,
+                              d.waff))
+        for name, value in (("work", work), ("n_work", n_work),
+                            ("tables", tables)):
+            object.__setattr__(self, name, value)
+
+    @property
+    def mode(self) -> int:
+        if self.wendland is not None:
+            return MODE_WENDLAND
+        return MODE_REST if self.biharmonic is None else MODE_BIHARMONIC
 
 
 @dataclasses.dataclass(frozen=True)
@@ -354,8 +532,8 @@ def _tile_hulls(ro, rd, t_enter, t_exit, alive, tiles):
 def _hull_box_live(hull_lo, hull_hi, blk_lo, blk_hi):
     """[tiles, NB] int32 hull/AABB overlap flags."""
     live = torch.all(
-        (hull_lo[:, None] <= blk_hi[None] + 1e-4)
-        & (hull_hi[:, None] >= blk_lo[None] - 1e-4),
+        (hull_lo[:, None] <= blk_hi[None] + HULL_EPS)
+        & (hull_hi[:, None] >= blk_lo[None] - HULL_EPS),
         -1,
     )
     return live.to(torch.int32)
@@ -452,8 +630,8 @@ def prepare_tiles(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
             centers=disp.centers.contiguous(),
             w=disp.w.contiguous(),
             waff=disp.waff.contiguous(),
-            cboxes=torch.cat([cb_lo, cb_hi], -1).contiguous(),
             clive=clive.contiguous(),
+            sigma=float(np.float32(disp.sigma)),
             inv_sigma=float(np.float32(1.0 / disp.sigma)),
             k_refresh=int(disp.k_refresh) or K_REFRESH,
         )
@@ -482,7 +660,6 @@ def prepare_tiles(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
     return TileInputs(
         rays=_ray_rows(ro, rd, t_enter, t_exit, alive0),
         live=live.to(torch.int32).contiguous(),
-        boxes=torch.cat([blk_lo, blk_hi], -1).contiguous(),
         tile_rows=tile_rows.contiguous(),
         prims=prims,
         prim_boxes=prim_boxes.contiguous(),
@@ -627,20 +804,33 @@ def _ptr(t):
 
 
 def _counts_ptr(lane_counts):
-    """The counting build's two counters (needed lane-evals, lanes of the
-    warp-evals that ran), or a null pointer for the shipped kernel."""
+    """The counting build's N_COUNTERS counters, or a null pointer for the
+    shipped kernel."""
     if lane_counts is None:
         return _PTR(None)
-    _check("lane_counts", lane_counts, torch.int64, (2,))
+    _check("lane_counts", lane_counts, torch.int64, (N_COUNTERS,))
     return _ptr(lane_counts)
 
 
-def trace_additive_cuda(inp: TileInputs, lane_counts=None):
+_ADDITIVE_NAMES = {MODE_REST: "trace_additive_rest",
+                   MODE_WENDLAND: "trace_additive_wendland",
+                   MODE_BIHARMONIC: "trace_additive_biharmonic"}
+
+
+def trace_additive_cuda(inp: TileInputs, lane_counts=None,
+                        two_ctas: bool = False):
     """Launch the CUDA additive tile-trace kernel (K1 rest, K2 Wendland or
     K4 biharmonic) on the current stream: (t [n], hit [n]) with hit 0/1 as
-    float. With `lane_counts` (two int64 on the card) the kernel's counting
-    build runs instead and adds the needed lane-evals and 32 per warp-eval
-    that ran.
+    float. The kernel marches the patches on `inp.work` (which TileInputs
+    derives from `inp.rays`) and writes a miss for every ray that starts
+    dead, so every output is written. With `lane_counts`
+    (N_COUNTERS int64 on the card) the kernel's counting build runs
+    instead and adds: the needed lane-evals; PATCH for every warp-eval
+    that ran; PATCH for every prim a warp evaluated; PATCH for every warp
+    pull-back that ran (K2); PATCH for every center a warp evaluated (K2).
+    `two_ctas` picks K2's build for two resident CTAs an SM instead of the
+    shipped three (the one residency variant kept for measuring; the other
+    modes have none and raise).
 
     Replaces the Pallas TPU kernel fembrain_tpu/render/pallas_trace.py
     `_trace_kernel_additive` (rest, Wendland and biharmonic modes)."""
@@ -648,59 +838,51 @@ def trace_additive_cuda(inp: TileInputs, lane_counts=None):
 
     n = inp.rays.shape[1]
     tiles = n // inp.tile
-    nb = inp.boxes.shape[0]
+    nb = inp.live.shape[1]
     P = inp.prims.shape[0]
     f32, i32 = torch.float32, torch.int32
     _check_tiling(n, inp.tile)
     _check("rays", inp.rays, f32, (9, n))
+    _check("work", inp.work, i32, (n // PATCH,))
+    _check("n_work", inp.n_work, i32, (1,))
     _check("live", inp.live, i32, (tiles, nb))
-    _check("boxes", inp.boxes, f32, (nb, 6))
     _check("tile_rows", inp.tile_rows, f32, (tiles, 4))
-    _check("prims", inp.prims, f32, (nb * PRIM_BLOCK, PRIM_ROW))
+    if P != nb * PRIM_BLOCK:
+        raise ValueError(f"{P} prims in {nb} blocks of {PRIM_BLOCK}")
     w, b = inp.wendland, inp.biharmonic
     if w is not None and b is not None:
         raise ValueError("one displacement mode per launch")
+    m, clive, sigma, inv_sigma, k_refresh, fp_iters = (
+        0, _PTR(None), 0.0, 0.0, 0, 0)
     if w is not None:
-        mp = w.centers.shape[0]
-        n_cb = mp // CEN_BLOCK
-        _check("centers", w.centers, f32, (n_cb * CEN_BLOCK, 3))
-        _check("weights", w.w, f32, (mp, 3))
-        _check("waff", w.waff, f32, (3, 4))
-        _check("cboxes", w.cboxes, f32, (n_cb, 6))
-        _check("clive", w.clive, i32, (tiles, n_cb))
+        m = w.centers.shape[0]
+        if m % CEN_BLOCK:
+            raise ValueError(f"{m} centers are not whole blocks of "
+                             f"{CEN_BLOCK}")
+        _check("clive", w.clive, i32, (tiles, m // CEN_BLOCK))
+        clive, k_refresh = _ptr(w.clive), w.k_refresh
+        sigma, inv_sigma = w.sigma, w.inv_sigma
     if b is not None:
-        m = b.centers.shape[0]
-        _check("centers", b.centers, f32, (m, 3))
-        _check("weights", b.w, f32, (m, 3))
-        _check("waff", b.waff, f32, (3, 4))
+        m, fp_iters = b.centers.shape[0], b.fp_iters
+    _check("tables", inp.tables, f32,
+           (table_layout(P, m)["total"],))
     lib = native.load()
-    t_out = torch.empty(n, device=inp.rays.device, dtype=f32)
+    dev = inp.rays.device
+    t_out = torch.empty(n, device=dev, dtype=f32)
     hit_out = torch.empty_like(t_out)
-    stream = torch.cuda.current_stream(inp.rays.device).cuda_stream
-    common = (
-        _ptr(inp.rays), _ptr(inp.live), _ptr(inp.boxes), _ptr(inp.tile_rows),
-        _ptr(inp.prims), _ptr(t_out), _ptr(hit_out), _counts_ptr(lane_counts),
+    taken = torch.zeros(1, device=dev, dtype=i32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    name = _ADDITIVE_NAMES[inp.mode]
+    rc = lib.fb_trace_additive(
+        _I32(inp.mode), _ptr(inp.rays), _ptr(inp.live), _ptr(inp.tile_rows),
+        _ptr(inp.tables), _ptr(inp.work), _ptr(inp.n_work), _ptr(taken),
+        _ptr(t_out), _ptr(hit_out), _counts_ptr(lane_counts),
         _I32(n), _I32(inp.tile), _I32(P), _I32(nb), _I32(int(inp.dyn_cull)),
         _F32(inp.iso), _F32(inp.r_iso), _F32(inp.base_step),
-        _I32(inp.max_steps), _I32(inp.bisect_steps),
+        _I32(inp.max_steps), _I32(inp.bisect_steps), clive, _I32(m),
+        _F32(sigma), _F32(inv_sigma), _I32(k_refresh), _I32(fp_iters),
+        _I32(int(two_ctas)), _PTR(stream),
     )
-    if w is not None:
-        rc = lib.fb_trace_additive_wendland(
-            *common, _ptr(w.centers), _ptr(w.w), _ptr(w.waff),
-            _ptr(w.cboxes), _ptr(w.clive),
-            _I32(n_cb), _I32(CEN_BLOCK), _F32(w.inv_sigma), _I32(w.k_refresh),
-            _PTR(stream),
-        )
-        name = "trace_additive_wendland"
-    elif b is not None:
-        rc = lib.fb_trace_additive_biharmonic(
-            *common, _ptr(b.centers), _ptr(b.w), _ptr(b.waff),
-            _I32(m), _I32(b.fp_iters), _PTR(stream),
-        )
-        name = "trace_additive_biharmonic"
-    else:
-        rc = lib.fb_trace_additive_rest(*common, _PTR(stream))
-        name = "trace_additive_rest"
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: {native.error_string(rc)}")
     LAUNCHES[name] += 1
@@ -710,7 +892,7 @@ def trace_additive_cuda(inp: TileInputs, lane_counts=None):
 def trace_general_cuda(inp: GeneralInputs, lane_counts=None):
     """Launch the CUDA general tile-trace kernel (K3) on the current
     stream: (t [n], hit [n]) with hit 0/1 as float; `lane_counts` as in
-    `trace_additive_cuda`.
+    `trace_additive_cuda` (its first three counters).
 
     Replaces the Pallas TPU kernel fembrain_tpu/render/pallas_trace.py
     `_trace_kernel` with fembrain_tpu/ops/field.py `field_rows`."""
@@ -764,8 +946,12 @@ def _march_rows(rays, tile, max_steps, bisect_steps, eval_c, carry, step_dt,
     `need` marking the lanes whose value the march uses (eval_c reads it
     only to count); step_dt(f, t, carry) -> the step; `subs` lists each
     loop iteration's sub-steps by their refresh flag (`it` counts
-    sub-steps, the loop test runs once per iteration). `count`, a
-    WorkCount, gets the needed lane-evals. Returns (t, hit as float)."""
+    sub-steps, the loop test runs once per iteration). `upd` marks the
+    lanes whose state a refresh may renew: every lane at the entry and in
+    the refinement, the lanes still marching in between (a lane's march
+    does not depend on its neighbours). `count`, a WorkCount, gets the
+    needed lane-evals and the lanes of the patch evals that hold one.
+    Returns (t, hit as float)."""
     rox, roy, roz, rdx, rdy, rdz, t_enter, t_exit, alive0f = rays
     n = rox.shape[0]
     tiles = n // tile
@@ -773,9 +959,12 @@ def _march_rows(rays, tile, max_steps, bisect_steps, eval_c, carry, step_dt,
     tile_of = torch.arange(n, device=rox.device) // tile
     everyone = torch.ones_like(alive0)
 
+    lanes = patch_rays(n, tile, rox.device) if count is not None else None
+
     def counted(need):
         if count is not None:
             count.lane_evals += int(need.sum())
+            count.lanes_run += PATCH * int(need[lanes].any(-1).sum())
         return need
 
     f0, carry = eval_c(t_enter, carry, True, everyone, counted(alive0))
@@ -793,7 +982,7 @@ def _march_rows(rays, tile, max_steps, bisect_steps, eval_c, carry, step_dt,
         for refresh in subs:
             t_new = torch.minimum(t + step_dt(f, t, carry), t_exit)
             m = alive & run
-            f_new, carry = eval_c(t_new, carry, refresh, run, counted(m))
+            f_new, carry = eval_c(t_new, carry, refresh, m, counted(m))
             crossed = m & (f_new >= 0.0)
             done = m & (t_new >= t_exit) & (f_new < 0.0)
             t_prev = torch.where(m, t, t_prev)
@@ -826,13 +1015,25 @@ def _march_plain(inp: TileInputs, count: WorkCount | None = None):
     """The additive march (K1, K2, K4). Blocks are masked by the static
     tile flags only: the per-eval hull cull is exact for the lanes whose
     values are used (compact support), so it is left out. `count` gets
-    the work these inputs need; the results do not depend on it."""
+    the work these inputs need and what the kernel's culls (per patch and
+    eval, against the hull of the lanes that need the value) let run for
+    it; the results do not depend on it."""
     rox, roy, roz, rdx, rdy, rdz, t_enter = inp.rays[:7]
     n = rox.shape[0]
     tile_of = torch.arange(n, device=rox.device) // inp.tile
     live = inp.live[tile_of] > 0                       # [n, nb]
     inv_stretch, shrink, slack, ldrift = inp.tile_rows[tile_of].unbind(-1)
     iso = inp.iso
+    if count is not None:
+        lanes = patch_rays(n, inp.tile, rox.device)
+        patch_tile = torch.arange(lanes.shape[0], device=rox.device) // (
+            inp.tile // PATCH)
+        # A prim is allowed on a patch where its block is on the tile.
+        prim_ok = inp.live[patch_tile].repeat_interleave(PRIM_BLOCK, 1) > 0
+
+    def patch_hull(px, py, pz, need, cull=True):
+        lo, hi, run = _patch_hull(px, py, pz, need, lanes)
+        return (lo, hi, run) if cull else (None, None, run)
     blocks = []
     for b, types in enumerate(inp.block_types):
         if not types:
@@ -850,6 +1051,10 @@ def _march_plain(inp: TileInputs, count: WorkCount | None = None):
 
     def field_rest(px, py, pz, need):
         f = torch.zeros_like(px)
+        if count is not None:
+            count.prims_run += PATCH * _boxes_run(
+                prim_ok, inp.prim_boxes,
+                patch_hull(px, py, pz, need, inp.dyn_cull))
         for (b, boxes, own_types, mtx, pos_c, dir_c, res_c, type_row,
              types) in blocks:
             if count is not None:
@@ -871,9 +1076,17 @@ def _march_plain(inp: TileInputs, count: WorkCount | None = None):
         n_cb = w.centers.shape[0] // CEN_BLOCK
         wa = w.waff
 
+        if count is not None:
+            center_ok = w.clive[patch_tile].repeat_interleave(CEN_BLOCK,
+                                                              1) > 0
+
         def pull(xx, yy, zz, px, py, pz, need):
             if count is not None:
                 count.pull_iters += int(need.sum())
+                hull = patch_hull(xx, yy, zz, need)
+                count.pull_lanes_run += PATCH * int(hull[2].sum())
+                count.centers_run += PATCH * _balls_run(
+                    center_ok, w.centers, w.sigma + HULL_EPS, hull)
             u = [wa[i, 0] + wa[i, 1] * xx + wa[i, 2] * yy + wa[i, 3] * zz
                  for i in range(3)]
             for cb in range(n_cb):
@@ -1004,7 +1217,18 @@ def trace_tiles_general_plain(inp: GeneralInputs,
         tile_of = torch.arange(rox.shape[0], device=rox.device) // inp.tile
         prim_live = inp.live[tile_of] > 0
 
+    if count is not None:
+        lanes = patch_rays(rox.shape[0], inp.tile, rox.device)
+        flags = inp.live[torch.arange(lanes.shape[0], device=rox.device)
+                         // (inp.tile // PATCH)]
+
     def count_reach(x, y, z, need):
+        # What the kernel's masks let run: always-live prims, and boxed
+        # ones whose box the patch hull of the needed points meets.
+        hull = _patch_hull(x, y, z, need, lanes)
+        count.prims_run += PATCH * (
+            _boxes_run(flags == LIVE_ALWAYS, inp.boxes, (None, None, hull[2]))
+            + _boxes_run(flags == LIVE_BOXED, inp.boxes, hull))
         # Each prim's box is tested at its warp group's point.
         for chain, prim_idx in scene.warp_groups:
             if not prim_idx:

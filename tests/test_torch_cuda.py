@@ -4,15 +4,20 @@ Wendland, K4 biharmonic) on brain.blob (21 prim blocks, per-eval cull on)
 and on a scene with one prim of every type (2 blocks, cull off); the
 general kernel (K3) on the brain resection (a DIF, fixed steps) and on a
 twisted blend (a warp chain, slab brackets). At 480x270 in pixel-block
-order K4 and K3 also run with tiles whose rays all miss, K3 with its
+order every kernel also runs with tiles whose rays all miss, K3 with its
 per-tile live flags, and each kernel's counting build is held to the
-plain version's count of needed lane-evals.
+plain version's count of needed lane-evals and of what the culls let run.
+The additive kernel's resident CTAs and work list: an image of fewer
+tiles than CTAs, every ray dead, every ray alive, tiles of 64 rays, and
+the same launch twice.
 
 Needs a card; skips without one. It imports only the port, so it runs
 where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -147,14 +152,22 @@ def _check_tiles_and_counts(inp, kernel, kname, plain, agree, max_dt):
     dead_rays = dead.repeat_interleave(inp.tile)
     assert torch.equal(t_k[dead_rays], inp.rays[7][dead_rays])
     assert not bool(h_k[dead_rays].any())
-    lanes = torch.zeros(2, dtype=torch.int64, device=inp.rays.device)
+    lanes = torch.zeros(tt.N_COUNTERS, dtype=torch.int64,
+                        device=inp.rays.device)
     t_c, h_c = kernel(inp, lanes)
     torch.cuda.synchronize()
     assert torch.equal(t_c, t_k) and torch.equal(h_c, h_k)
-    needed, ran = lanes.tolist()
+    needed, ran, prims, pulls, centers = lanes.tolist()
     assert abs(needed - count.lane_evals) <= 0.01 * count.lane_evals
     assert needed <= ran and ran % 32 == 0
     assert count.flops > 0
+    # What the culls let run, against the plain version's count of it.
+    for got, want in ((ran, count.lanes_run), (prims, count.prims_run),
+                      (pulls, count.pull_lanes_run),
+                      (centers, count.centers_run)):
+        assert abs(got - want) <= 0.01 * want
+    assert prims >= count.prims_in_reach
+    assert centers >= count.wendland_center_evals
 
 
 @pytest.mark.cuda
@@ -171,6 +184,109 @@ def test_biharmonic_kernel_at_480x270(cuda, name):
     _check_tiles_and_counts(inp, tt.trace_additive_cuda,
                             "trace_additive_biharmonic",
                             tt.trace_tiles_biharmonic_plain, K4_AGREE, K4_MAX)
+
+
+def _additive_inputs(cuda, mode, rays, tile=tt.TILE):
+    """Brain inputs of the additive kernel in `mode` on `rays` (ro, rd):
+    (inputs, plain version, thresholds)."""
+    scene, _ = _scene("brain", cuda)
+    if mode == "wendland":
+        interp, w, _ = _sag_interp(scene, cuda, "wendland")
+        disp = wendland_spec(interp, w, k_refresh=4)
+        plain, thr = tt.trace_tiles_wendland_plain, (K2_AGREE, K2_MAX,
+                                                     K2_MEDIAN)
+    elif mode == "biharmonic":
+        interp, w, pts = _sag_interp(scene, cuda, "biharmonic")
+        disp = biharmonic_spec(interp, w, *disp_bounds_sampled(interp, w, pts))
+        plain, thr = tt.trace_tiles_biharmonic_plain, (K4_AGREE, K4_MAX, None)
+    else:
+        disp, plain, thr = None, tt.trace_tiles_plain, (K1_AGREE, K1_MAX, None)
+
+    def prepare(ro, rd):
+        return tt.prepare_tiles(scene, ro, rd, tile=tile, disp=disp)
+
+    return prepare(*rays), plain, thr, prepare
+
+
+MODES = ["rest", "wendland", "biharmonic"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["rest", "wendland"])
+def test_additive_kernel_at_480x270(cuda, mode):
+    """K1 and K2 on pixel blocks, with dead tiles and the counting
+    build's five counters."""
+    inp, plain, (agree, max_dt, _), _ = _additive_inputs(
+        cuda, mode, _block_rays((30.0, 20.0, 8.0), cuda))
+    _check_tiles_and_counts(inp, tt.trace_additive_cuda,
+                            f"trace_additive_{mode}", plain, agree, max_dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+def test_fewer_tiles_than_resident_ctas(cuda, mode):
+    """A 32x32 image is four tiles: the launch is cut to four CTAs and
+    most warps find the list empty."""
+    inp, plain, (agree, max_dt, median), _ = _additive_inputs(
+        cuda, mode, _block_rays((30.0, 20.0, 6.0), cuda, 32, 32))
+    assert inp.rays.shape[1] == 4 * tt.TILE
+    _compare(inp, f"trace_additive_{mode}", plain, agree, max_dt, median)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+def test_every_ray_dead_and_every_ray_alive(cuda, mode):
+    ro, rd = _rays((30.0, 20.0, 6.0), cuda)
+    inp, plain, (agree, max_dt, median), prepare = _additive_inputs(
+        cuda, mode, (ro, rd))
+    dead = inp.rays.clone()
+    dead[8] = 0.0
+    none = dataclasses.replace(inp, rays=dead)
+    assert int(none.n_work) == 0
+    t, hit = tt.run_tiles(none)
+    torch.cuda.synchronize()
+    assert torch.equal(t, inp.rays[7]) and not bool(hit.any())
+    # Only the rays that start alive, in whole tiles: every patch is on
+    # the list.
+    idx = torch.nonzero(inp.rays[8][: ro.shape[0]] > 0).squeeze(-1)
+    idx = idx[: idx.numel() // tt.TILE * tt.TILE]
+    assert idx.numel() >= 4 * tt.TILE
+    full = prepare(ro[idx], rd[idx])
+    assert bool((full.rays[8] > 0).all())
+    assert int(full.n_work) == idx.numel() // tt.PATCH
+    _compare(full, f"trace_additive_{mode}", plain, agree, max_dt, median)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+def test_tile_smaller_than_256(cuda, mode):
+    """Tiles of 64 rays: two patches of 32 rays in a row each."""
+    inp, plain, (agree, max_dt, median), _ = _additive_inputs(
+        cuda, mode, _rays((30.0, 20.0, 6.0), cuda), tile=64)
+    assert inp.tile == 64 and inp.live.shape[0] == inp.rays.shape[1] // 64
+    _compare(inp, f"trace_additive_{mode}", plain, agree, max_dt, median)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+def test_two_launches_give_equal_outputs(cuda, mode):
+    """Which warp takes which patch changes from launch to launch; the
+    outputs do not (no sum is taken with atomics). Nor do they with K2's
+    build for two CTAs an SM, which the other modes do not have."""
+    inp, _, _, _ = _additive_inputs(
+        cuda, mode, _block_rays((30.0, 20.0, 8.0), cuda))
+    t1, h1 = tt.trace_additive_cuda(inp)
+    t2, h2 = tt.trace_additive_cuda(inp)
+    torch.cuda.synchronize()
+    assert int(h1.sum()) > 100
+    assert torch.equal(t1, t2) and torch.equal(h1, h2)
+    if mode == "wendland":
+        t3, h3 = tt.trace_additive_cuda(inp, two_ctas=True)
+        torch.cuda.synchronize()
+        assert torch.equal(t1, t3) and torch.equal(h1, h3)
+    else:
+        with pytest.raises(RuntimeError):
+            tt.trace_additive_cuda(inp, two_ctas=True)
 
 
 @pytest.mark.cuda

@@ -1,26 +1,60 @@
-"""Scenes built in code for the port's tests. Each builder takes the
+"""Scenes built in code for the port's tests. Each function takes the
 scene module of either package (`fembrain_tpu.blob.scene` or
 `fembrain_tpu_torch.blob.scene`), so both build the same scene. This file
-imports no JAX: the card-only tests and chip_smoke.py use it where JAX is
-not installed."""
+imports no JAX: the card-only tests use it where JAX is
+not installed. The two scenes chip_smoke.py drives as well also have a
+function in the port (`fembrain_tpu_torch.blob.examples`, the port's own
+scene module only); the functions here share its constants and are held to
+it below."""
+import dataclasses
 import importlib
+import inspect
 import os
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 import fembrain_tpu_torch.blob.scene as pscene
+from fembrain_tpu_torch.blob import examples
+from fembrain_tpu_torch.blob.examples import BRAIN
 from fembrain_tpu_torch.blob.types import OpType, PrimType
-
-BRAIN = Path(__file__).resolve().parent.parent / "data/models/blobtree/brain.blob"
 
 # Under pytest-xdist several workers share the host's cores; PyTorch's CPU
 # pool would start one thread per core in each worker and oversubscribe
 # them (every test_torch_* module imports this one).
 if "PYTEST_XDIST_WORKER" in os.environ:
     torch.set_num_threads(1)
+
+
+def brain_resection(mod):
+    """brain.blob cut by a DIF with one cylinder, as
+    `examples.brain_resection`, built with package `mod`'s reader and
+    scene classes."""
+    reader = importlib.import_module(mod.__name__.rsplit(".", 1)[0] + ".reader")
+    sc = reader.load_blob(BRAIN)
+    sc.flatten_instances()
+    cyl = sc.add_prim(mod.PrimDef(PrimType.CYLINDER,
+                                  pos=np.array(examples.RESECTION_POS),
+                                  dir=np.array(examples.RESECTION_DIR),
+                                  res=np.array(examples.RESECTION_RES)))
+    sc.root_idx = sc.add_op(mod.OpDef(OpType.DIF, left=sc.root_idx,
+                                      left_is_op=True, right=cyl))
+    return sc
+
+
+def blend_twist(mod):
+    """Two points under a BLEND, twisted about x, as
+    `examples.blend_twist`."""
+    sc = mod.SceneDef()
+    for pos in examples.TWIST_POINTS:
+        sc.add_prim(mod.PrimDef(PrimType.POINT, pos=np.array(pos)))
+    blend = sc.add_op(mod.OpDef(OpType.BLEND, left=0, right=1))
+    sc.root_idx = sc.add_op(mod.OpDef(
+        OpType.WARP_TWIST, left=blend, left_is_op=True, is_unary=True,
+        params=np.array(examples.TWIST_PARAMS)))
+    sc.root_is_op = True
+    return sc
 
 
 def small_blend(mod):
@@ -72,34 +106,6 @@ def every_type(mod, op=OpType.BLEND):
         sc.add_prim(p)
     sc.add_op(mod.OpDef(op, left=0, right=len(prims) - 1, is_range=True))
     sc.root_is_op, sc.root_idx = True, 0
-    return sc
-
-
-def brain_resection(mod):
-    """brain.blob (a root BLEND over 163 prims) cut by a DIF with one
-    cylinder: a surgical channel through the cortex."""
-    reader = importlib.import_module(mod.__name__.rsplit(".", 1)[0] + ".reader")
-    sc = reader.load_blob(BRAIN)
-    sc.flatten_instances()
-    cyl = sc.add_prim(mod.PrimDef(PrimType.CYLINDER,
-                                  pos=np.array([0.3, 0.4, 0.2]),
-                                  dir=np.array([0.0, 1.0, 0.0]),
-                                  res=np.array([0.35, 1.2, 0.0, 0.0])))
-    sc.root_idx = sc.add_op(mod.OpDef(OpType.DIF, left=sc.root_idx,
-                                      left_is_op=True, right=cyl))
-    return sc
-
-
-def blend_twist(mod):
-    """Two points under a BLEND, twisted about x (a warp chain)."""
-    sc = mod.SceneDef()
-    sc.add_prim(mod.PrimDef(PrimType.POINT, pos=np.array([-0.4, 0.0, 0.0])))
-    sc.add_prim(mod.PrimDef(PrimType.POINT, pos=np.array([0.4, 0.0, 0.0])))
-    blend = sc.add_op(mod.OpDef(OpType.BLEND, left=0, right=1))
-    sc.root_idx = sc.add_op(mod.OpDef(
-        OpType.WARP_TWIST, left=blend, left_is_op=True, is_unary=True,
-        params=np.array([0.9, 0.0, 0.0, 0.0])))
-    sc.root_is_op = True
     return sc
 
 
@@ -161,3 +167,31 @@ def test_general_fixture_scenes(make, cull, monotone):
     ps = sc.pack(device="cpu")
     assert not ps.is_additive
     assert (ps.can_cull, ps.monotone_field) == (cull, monotone)
+
+
+@pytest.mark.parametrize("name", ["brain_resection", "blend_twist"])
+def test_port_examples_build_the_fixture_scenes(name):
+    """The port's own functions (what chip_smoke.py drives) and the
+    two-package ones here give the same packed scene, bit for bit."""
+    a = getattr(examples, name)().pack(device="cpu")
+    b = globals()[name](pscene).pack(device="cpu")
+    n = 0
+    for f in dataclasses.fields(a):
+        va, vb = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(va, torch.Tensor):
+            assert torch.equal(va, vb), f.name
+            n += 1
+        else:
+            assert va == vb, f.name
+    assert n > 5
+
+
+def test_port_examples_import_no_other_package():
+    """`blob/examples.py` takes no module argument and imports only the
+    port: no `importlib`, no name of the JAX package."""
+    src = (BRAIN.parents[3] / "fembrain_tpu_torch" / "blob"
+           / "examples.py").read_text()
+    assert "importlib" not in src and "jax" not in src
+    assert "fembrain_tpu." not in src and "import fembrain_tpu\n" not in src
+    assert inspect.signature(examples.brain_resection).parameters == {}
+    assert inspect.signature(examples.blend_twist).parameters == {}

@@ -2,6 +2,8 @@
 tile trace (K2's plain version) against the JAX package on the brain
 scene under a sag u = -0.15 s^2, and against the port's exact dense
 tracer."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -110,6 +112,49 @@ def test_deformed_trace_matches_pallas(setup):
         need_grads=False, k_refresh=K_REFRESH,
     )
     _k2_agree(np.asarray(h_j), np.asarray(t_j), h_p.numpy(), t_p.numpy())
+
+
+@pytest.mark.parametrize("pose", [(210.0, -20.0, 6.0), (120.0, 35.0, 8.0)])
+def test_per_patch_march_matches_pallas_from_other_views(setup, pose):
+    """K2 marches patch by patch and refreshes the rest-point model of
+    the lanes still marching, where the JAX kernel refreshes every lane
+    that started alive for as long as its 256-ray tile marches. From
+    behind and from above, at the same thresholds."""
+    ro, rd = jax_rays(JaxCamera.orbit(*pose), 32, 20)
+    ro, rd = np.asarray(ro).reshape(-1, 3), np.asarray(rd).reshape(-1, 3)
+    t_j, h_j = jd.trace_deformed_rbf_fast(
+        setup["js"], setup["interp"], jnp.asarray(setup["w"]), ro, rd,
+        interpret=True, need_grads=False, tile=256, k_refresh=K_REFRESH,
+    )
+    t_p, h_p = pd.trace_deformed_rbf_fast(
+        setup["ps"], setup["pinterp"], torch.tensor(setup["w"]),
+        torch.tensor(ro), torch.tensor(rd), need_grads=False,
+        k_refresh=K_REFRESH,
+    )
+    _k2_agree(np.asarray(h_j), np.asarray(t_j), h_p.numpy(), t_p.numpy())
+
+
+def test_deformed_march_of_a_ray_does_not_depend_on_its_neighbours(setup):
+    """A lane refreshes only while it marches itself and the culls are
+    exact, so with every other ray dead (and the tile's step rows and
+    flags kept) a ray's root keeps its bits."""
+    w = torch.tensor(setup["w"])
+    spec = pd.wendland_spec(setup["pinterp"], w, k_refresh=K_REFRESH)
+    inp = tt.prepare_tiles(setup["ps"], torch.tensor(setup["ro"]),
+                           torch.tensor(setup["rd"]), disp=spec)
+    t, hit = tt.trace_tiles_wendland_plain(inp)
+    alive = torch.nonzero(inp.rays[8] > 0).squeeze(-1)
+    chosen = alive[::5]
+    assert chosen.numel() > 20 and int(hit[chosen].sum()) > 10
+    keep = torch.zeros(inp.rays.shape[1], dtype=torch.bool)
+    keep[chosen] = True
+    rays = inp.rays.clone()
+    rays[8] = torch.where(keep, rays[8], 0.0)
+    t1, hit1 = tt.trace_tiles_wendland_plain(
+        dataclasses.replace(inp, rays=rays))
+    assert torch.equal(t1[chosen], t[chosen])
+    assert torch.equal(hit1[chosen], hit[chosen])
+    assert not bool(hit1[~keep].any())
 
 
 def test_deformed_trace_matches_dense_tracer(setup):

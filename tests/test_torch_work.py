@@ -2,7 +2,9 @@
 (`tile_trace.WorkCount`), from which the kernels' fp32 lower bound is
 computed. The counts on a one-sphere scene and on brain equal a scalar
 march written here, ray by ray; they do not depend on the tile size; and
-counting changes no result."""
+counting changes no result. What the kernel's culls let run for that work
+(`lanes_run`, `prims_run`, ...) is held to the same scalar march on rays
+that sit alone in their patch."""
 import dataclasses
 
 import numpy as np
@@ -54,24 +56,32 @@ def _only(inp, chosen):
 
 def _scalar_march(scene, inp, g):
     """One ray of the rest march (K1) in scalar arithmetic: (needed
-    lane-evals, prims whose support box holds an evaluation point)."""
+    lane-evals, prims whose support box holds an evaluation point, prims
+    the kernel's cull lets run for a patch that holds this ray alone:
+    those its tile's flags allow and, where the scene culls per eval,
+    whose box meets the point with the hull slack)."""
     f32 = np.float32
     r = inp.rays[:, g].numpy()
     ro, rd, t_enter, t_exit = r[:3], r[3:6], r[6], r[7]
     inv_stretch = inp.tile_rows[g // inp.tile, 0].numpy()
     boxes = inp.prim_boxes.numpy()
-    evals = reach = 0
+    allowed = np.repeat(inp.live[g // inp.tile].numpy() > 0, tt.PRIM_BLOCK)
+    eps = f32(tt.HULL_EPS)
+    evals = reach = run = 0
 
     def f_at(t):
-        nonlocal evals, reach
+        nonlocal evals, reach, run
         p = (ro + f32(t) * rd).astype(f32)
         evals += 1
         reach += int(np.sum(np.all((p >= boxes[:, :3]) & (p <= boxes[:, 3:]),
                                    axis=1)))
+        met = np.all((p <= boxes[:, 3:] + eps) & (p >= boxes[:, :3] - eps),
+                     axis=1) if inp.dyn_cull else True
+        run += int(np.sum(allowed & met))
         return f32(field(scene, torch.tensor(p)[None])[0]) - f32(inp.iso)
 
     if not r[8] > 0:
-        return 0, 0
+        return 0, 0, 0
     t = t_prev = t_enter
     f = f_prev = f_at(t)
     found, alive, it = f >= 0, f < 0, 0
@@ -99,7 +109,7 @@ def _scalar_march(scene, inp, g):
                 a = m
             else:
                 b = m
-    return evals, reach
+    return evals, reach, run
 
 
 @pytest.mark.parametrize("name", ["sphere", "brain"])
@@ -113,17 +123,43 @@ def test_count_equals_scalar_march(name):
     _, hit = tt.trace_tiles_plain(_only(inp, chosen), count)
     want = [_scalar_march(scene, inp, int(g)) for g in chosen]
     assert 0 < int(hit.sum()) <= 16
-    assert count.lane_evals == sum(e for e, _ in want) > 16
-    assert count.prims_in_reach == sum(r for _, r in want) > 0
+    assert count.lane_evals == sum(e for e, _, _ in want) > 16
+    assert count.prims_in_reach == sum(r for _, r, _ in want) > 0
     assert count.flops == sum(
         c * tt.PRIM_FLOPS[t] for t, c in count.prim_evals.items())
+
+
+@pytest.mark.parametrize("tile", [32, 256])
+@pytest.mark.parametrize("name", ["sphere", "brain"])
+def test_run_counts_equal_scalar_march(name, tile):
+    """With one live ray in a patch its hull is the ray's point: the
+    kernel's warp runs all 32 lanes for every eval that ray needs, and
+    every prim that the tile's flags and the point's box test let by."""
+    scene, pose = _scene(name)
+    inp = tt.prepare_tiles(scene, *_rays(pose), tile=tile)
+    alive = (inp.rays[8] > 0)[tt.patch_rays(inp.rays.shape[1], tile)]
+    first = torch.argmax(alive.to(torch.int8), 1)
+    chosen = tt.patch_rays(inp.rays.shape[1], tile)[
+        torch.arange(alive.shape[0]), first][alive.any(-1)][:12]
+    assert chosen.numel() >= 3
+    assert inp.dyn_cull == (name == "brain")
+    count = tt.WorkCount()
+    tt.trace_tiles_plain(_only(inp, chosen), count)
+    want = [_scalar_march(scene, inp, int(g)) for g in chosen]
+    assert count.lane_evals == sum(e for e, _, _ in want)
+    assert count.lanes_run == 32 * count.lane_evals > 0
+    assert count.prims_run == 32 * sum(r for _, _, r in want)
+    assert count.prims_run >= 32 * count.prims_in_reach > 0
+    assert count.pull_lanes_run == count.centers_run == 0
 
 
 @pytest.mark.parametrize("name", ["sphere", "brain"])
 def test_count_is_the_same_at_tile_32_and_256(name):
     """A ray's march depends on its tile only through the tile's stretch
     bound (the largest over the blocks the tile may meet), so with one
-    stretch bound on every tile the counts are the tile size's own."""
+    stretch bound on every tile the counts of what is needed are the tile
+    size's own. What the kernel lets run for it is counted per patch of 32
+    rays, and a patch is another set of rays at another tile size."""
     scene, pose = _scene(name)
     ro, rd = _rays(pose)
     counts = []
@@ -133,16 +169,19 @@ def test_count_is_the_same_at_tile_32_and_256(name):
         rows[:, 0] = 1.0 / scene.max_world_to_local_scale
         count = tt.WorkCount()
         tt.trace_tiles_plain(dataclasses.replace(inp, tile_rows=rows), count)
-        counts.append(dataclasses.asdict(count))
+        assert count.lanes_run >= count.lane_evals
+        assert count.prims_run >= count.prims_in_reach
+        counts.append({k: v for k, v in dataclasses.asdict(count).items()
+                       if not k.endswith("_run")})
     assert counts[0] == counts[1] and counts[0]["lane_evals"] > 0
 
 
-def _sag(scene, kernel):
-    """A sag u = -0.15 s^2 (s the normalised height) through 32 centers
-    among 300 seeded points of the scene's box: (interp, weights, points)."""
+def _sag(scene, kernel, n_centers=32, n_nodes=300):
+    """A sag u = -0.15 s^2 (s the normalised height) through centers among
+    seeded points of the scene's box: (interp, weights, points)."""
     lo, hi = scene.bbox_lo.numpy(), scene.bbox_hi.numpy()
-    nodes = lo + np.random.default_rng(3).random((300, 3)) * (hi - lo)
-    interp = build_disp_interp(nodes, n_centers=32, kernel=kernel,
+    nodes = lo + np.random.default_rng(3).random((n_nodes, 3)) * (hi - lo)
+    interp = build_disp_interp(nodes, n_centers=n_centers, kernel=kernel,
                                sigma_fill=2.5, device="cpu")
     y = interp.centers[:, 1]
     u_c = torch.zeros_like(interp.centers)
@@ -186,9 +225,17 @@ def test_counting_changes_no_result(mode):
     elif mode == "wendland":
         assert 0 < count.pull_iters < count.lane_evals
         assert 0 < count.wendland_center_evals < 32 * count.pull_iters
+        # What K2's culls let run covers what is needed, in whole warps.
+        assert count.pull_lanes_run >= count.pull_iters
+        assert count.centers_run >= count.wendland_center_evals
+        assert count.pull_lanes_run % 32 == count.centers_run % 32 == 0
+        assert count.centers_run <= (inp.wendland.centers.shape[0]
+                                     * count.pull_lanes_run)
     else:
         assert count.pull_iters == 0
     assert count.flops >= 30 * count.prims_in_reach
+    assert count.lanes_run >= count.lane_evals and count.lanes_run % 32 == 0
+    assert count.prims_run >= count.prims_in_reach
 
 
 def test_prims_count_as_their_own_type():
