@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's coupled render+deform frame and its training
-path once on one CUDA card, through its hand-written kernels.
+"""Drive the PyTorch port's coupled render+deform frame, its training
+path and its simulation frame once on one CUDA card, through its
+hand-written kernels.
 
     python3 chip_smoke.py
 
@@ -38,9 +39,23 @@ Phases, each raising on failure:
      (first and warm call); (c) that
      E-gradient against central finite differences at a small size
      (cellsize 0.35, 64 centers, 24x18 rays, one step from rest).
-Phases 4 and 5 also count the frames and steps they drive, and each
-kernel's launches per step come from that: launches over steps, held to 1.
-Then one JSON line with the kernels, the card line, and the result line.
+  6. with the launch counters at 0 again, the simulation frame on brain at
+     the width of data/models/brain.sim (cellsize 0.14): polygonize the
+     surface and extract the tet mesh, build the unstructured FEM mesh
+     and a `Deformable`, step it under gravity and then under a haptic
+     push at the top of the surface (CG iterations, ms and device kernel
+     launches per step), move the surface vertices with the FEM
+     displacements, run coupled frames through `coupled_step_fast` at
+     1920x1080 (a 256-center Wendland interpolant: K2) and one
+     differentiable one (the biharmonic interpolant: K4) with its
+     E-gradient, shade K1's hits at 1920x1080, render the rest and the
+     deformed tissue densely at 400x300, and evaluate and trace a scene
+     of more than 96 ops (which takes no kernel).
+Phases 4 to 6 also count the frames and steps they drive, and each
+kernel's launches per step come from that, path by path: launches over
+steps, held to 1. Then one JSON line with the kernels (`launches` is the
+sum over the counted paths, `launches_by_path` the parts), the card line,
+and the result line.
 It needs a CUDA card and exits non-zero without one.
 """
 from __future__ import annotations
@@ -65,6 +80,13 @@ MAX_DISP = 0.5      # static bracket inflation of the biharmonic trace
 # The E-gradient check at the size of the reference's (bench.py:683-718).
 FD_CELLSIZE, FD_CENTERS, FD_RAYS, FD_FORCE = 0.35, 64, (24, 18), -200.0
 FD_MAX_REL = 0.05
+# The simulation frame: per-node gravity force of the Deformable, the
+# haptic push (brain.sim's FORCECOEFF) and the steps and frames driven.
+SIM_GRAVITY = -1000.0
+SIM_PUSH = (0.0, -5000.0, 0.0)
+SIM_GRAVITY_STEPS, SIM_PUSH_STEPS, SIM_FRAMES = 5, 5, 5
+SIM_IMAGE = (400, 300)     # the app's default frame, marched densely
+SIM_DEEP_RAYS = (64, 48)   # the scene of more than 96 ops
 # Kernel against plain version: (hit agreement, max |dt|, median |dt|).
 THRESHOLDS = {
     "trace_additive_rest": (0.999, 1e-4, None),
@@ -687,6 +709,319 @@ def training_phase(root, device, params, frame, tag, log):
     return launches, steps
 
 
+def device_kernels(fn):
+    """Device kernels launched by one call of `fn`, counted by
+    torch.profiler; None where the profiler sees no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n or None
+
+
+def simulation_frame_phase(root, device, params, tag, log):
+    """Phase 6: the simulation frame, counted; returns (launches, steps
+    driven per kernel)."""
+    import numpy as np
+    import torch
+
+    from fembrain_tpu_torch.blob.examples import union_chain_over_100_ops
+    from fembrain_tpu_torch.fem.deformable import (
+        Deformable, couple_surface_displacements,
+    )
+    from fembrain_tpu_torch.fem import integrator as integ
+    from fembrain_tpu_torch.fem.tetmesh import build_fem_mesh
+    from fembrain_tpu_torch.mesh.polygonize import (
+        check_capacity, default_caps, extract_tet_mesh, grid_for_scene,
+        polygonize,
+    )
+    from fembrain_tpu_torch.mesh.samples import bottom_nodes_per_component
+    from fembrain_tpu_torch.ops.field import UNROLL_LIMIT, field, field_via
+    from fembrain_tpu_torch.render import tile_trace as tt
+    from fembrain_tpu_torch.render.camera import Camera
+    from fembrain_tpu_torch.render.deformed import (
+        build_disp_interp, coupled_step_fast, coupling_telemetry,
+        disp_weights, max_disp_bound, render_deformed,
+        trace_deformed_rbf_fast,
+    )
+    from fembrain_tpu_torch.render.sphere_trace import render_image, shade
+
+    tt.reset_launch_counts()
+    steps = {"trace_additive_rest": 0, "trace_additive_wendland": 0,
+             "trace_additive_biharmonic": 0}
+    t_phase = time.perf_counter()
+
+    # 6.1 surface, tet mesh, FEM mesh, Deformable.
+    scene = load_scene(root, device)
+    grid = grid_for_scene(scene, cellsize=CELLSIZE)
+    vcap, tcap = default_caps(grid)
+    poly_first_ms, _ = sync_ms(lambda: polygonize(scene, grid, vcap, tcap))
+    poly_ms, surface = sync_ms(lambda: polygonize(scene, grid, vcap, tcap))
+    check_capacity(surface)
+    nv, nt = int(surface.n_verts), int(surface.n_tris)
+    tris = surface.tris[:nt].long()
+    if nv <= 0 or nt <= 0 or int(tris.max()) >= nv or int(tris.min()) < 0:
+        raise AssertionError(f"surface: {nv} verts, {nt} tris, index range "
+                             f"[{int(tris.min())}, {int(tris.max())}]")
+    edges = torch.cat([tris[:, [0, 1]], tris[:, [1, 2]], tris[:, [2, 0]]])
+    edges = torch.sort(edges, 1).values
+    uniq, per_edge = torch.unique(edges, dim=0, return_counts=True)
+    # Closed: every edge has two triangles, but for the rim where the
+    # grid's box (the scene's heuristic bounding box plus its margin)
+    # cuts the surface off; there an edge has one and lies on the box.
+    rim = uniq[per_edge == 1]
+    lo = torch.tensor(grid.lo, device=device)
+    hi = lo + (torch.tensor(grid.dims, device=device) - 1) * grid.cellsize
+    rim_v = surface.verts[rim.reshape(-1)]
+    on_box = (torch.minimum((rim_v - lo).abs(), (rim_v - hi).abs())
+              .amin(1) < 1e-5)
+    n_closed = int((per_edge == 2).sum())
+    if (n_closed <= 0 or bool((per_edge > 2).any())
+            or not bool(on_box.all())):
+        raise AssertionError(
+            f"surface is not closed: {n_closed} edges with two triangles, "
+            f"{int((per_edge > 2).sum())} with more, {len(rim)} with one of "
+            f"which {int((~on_box).sum()) // 2} off the grid's box")
+    for label, a in (("verts", surface.verts[:nv]),
+                     ("normals", surface.normals[:nv]),
+                     ("colors", surface.colors[:nv])):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"surface {label} not finite")
+    tet_ms, tm = sync_ms(lambda: extract_tet_mesh(
+        scene, grid, ncap=grid.n_vertices, tetcap=grid.n_cells * 6))
+    check_capacity(tm)
+    nodes = tm.nodes[: tm.n_nodes].cpu().numpy()
+    tets = tm.tets[: tm.n_tets].cpu().numpy()
+    fixed = bottom_nodes_per_component(nodes, tets, frac=0.25)
+    t0 = time.perf_counter()
+    fem = build_fem_mesh(nodes, tets, fixed=fixed, device=device)
+    body = Deformable(fem, gravity=SIM_GRAVITY)
+    build_s = time.perf_counter() - t0
+    log(f"6.1 surface: {nv} verts, {nt} tris (caps {vcap}, {tcap}), {n_closed} "
+        f"closed edges, {len(rim)} rim edges on the grid's box; "
+        f"polygonize first call {poly_first_ms:.3f} ms, warm {poly_ms:.3f} "
+        f"ms; tet mesh {tm.n_nodes} nodes, {tm.n_tets} tets in {tet_ms:.3f} "
+        f"ms; FEM mesh ({len(fixed)} fixed nodes, ke "
+        f"{fem.ke.numel() * 4 / 1e6:.1f} MB) + adjacency {build_s:.3f} s "
+        f"{tag}")
+
+    # 6.2 steps under gravity, then under a haptic push at the top vertex.
+    def timed_steps(n, f_haptic, label):
+        rows = []
+        for _ in range(n):
+            ms, _ = sync_ms(lambda: body.timestep(f_haptic))
+            rows.append((ms, body.stats()["cg_iters"]))
+        log(f"6.2 {label}: ms per step {[round(m, 1) for m, _ in rows]}, CG "
+            f"iterations {[i for _, i in rows]} {tag}")
+        return rows
+
+    rows = timed_steps(SIM_GRAVITY_STEPS, None, "gravity steps")
+    top = int(torch.argmax(surface.verts[:nv, 1]))
+    push_node = int(tm.grid_to_node[surface.edge_nodes[top, 0].long()])
+    f_push = body.haptic_forces(np.array([push_node]), np.array([SIM_PUSH]))
+    q_before = body.state.q.clone()
+    rows += timed_steps(SIM_PUSH_STEPS, f_push, "haptic push steps "
+                        f"(node {push_node}, {int((f_push != 0).any(1).sum())}"
+                        " nodes in its rings)")
+    n_kernels = device_kernels(lambda: body.timestep(f_push))
+    it_last = body.stats()["cg_iters"]
+    q = body.state.q
+    fixed_t = fem.fixed
+    if not bool(torch.isfinite(q).all()) or float(q.abs().max()) == 0.0:
+        raise AssertionError("FEM state not finite and non-zero")
+    if float(q[fixed_t].abs().max()) != 0.0:
+        raise AssertionError("fixed nodes moved")
+    if float((q - q_before)[push_node].abs().max()) == 0.0:
+        raise AssertionError("the haptic push moved nothing")
+    per_iter = (f"{n_kernels / max(it_last, 1):.1f} a CG iteration"
+                if n_kernels else "")
+    log(f"6.2 device kernel launches in one step: "
+        f"{n_kernels if n_kernels else 'not measured'} for {it_last} CG "
+        f"iterations {per_iter}; max |q| {float(q.abs().max()):.6f}, min q_y "
+        f"{float(q[:, 1].min()):.6f}, {body.stats()['n_collided']} collided "
+        f"{tag}")
+
+    # 6.3 the surface moves with the FEM displacements.
+    couple_ms, disp = sync_ms(lambda: couple_surface_displacements(
+        surface.edge_nodes, surface.edge_t, tm.grid_to_node, q))
+    dn = torch.linalg.norm(disp[:nv], dim=-1)
+    qn = torch.linalg.norm(q, dim=-1)
+    ends = tm.grid_to_node[surface.edge_nodes[:nv].long()].long()   # [nv, 2]
+    if int(ends.min()) < 0:
+        raise AssertionError("a surface vertex lies on an edge off the mesh")
+    if not bool(torch.isfinite(disp).all()):
+        raise AssertionError("surface displacement not finite")
+    if bool((dn > qn[ends].amax(1) + 1e-6).any()) or not (
+            0.5 * float(qn[ends].mean()) < float(dn.mean())
+            <= float(qn[ends].amax(1).mean()) + 1e-6):
+        raise AssertionError("surface displacement does not follow q")
+    log(f"6.3 surface coupling {couple_ms:.3f} ms: |disp| mean "
+        f"{float(dn.mean()):.6f} max {float(dn.max()):.6f} (|q| at the edge "
+        f"ends mean {float(qn[ends].mean()):.6f}) {tag}")
+
+    # 6.4 coupled frames on the unstructured solver (K2), then one
+    # differentiable frame (K4) with its E-gradient.
+    interp = build_disp_interp(nodes, n_centers=N_CENTERS, fixed=fixed,
+                               kernel="wendland", sigma_fill=SIGMA_FILL,
+                               device=device)
+    f_ext = torch.zeros_like(fem.rest)
+    f_ext[:, 1] = SIM_GRAVITY
+    f_ext = f_ext + torch.as_tensor(f_push, dtype=f_ext.dtype, device=device)
+    ro, rd = image_rays(WIDTH, HEIGHT, device)
+    hw = (HEIGHT, WIDTH)
+    st0 = body.state
+    state, cg_iters = st0, []
+
+    def coupled():
+        nonlocal state
+        t, hit, state, it = coupled_step_fast(
+            scene, fem, interp, state, f_ext, ro, rd, params=params,
+            image_hw=hw, cg_tol=CG_TOL, k_refresh=K_REFRESH)
+        cg_iters.append(it)
+        steps["trace_additive_wendland"] += 1
+        return t, hit
+
+    frame_ms, (t_def, hit_def) = sync_ms(coupled, reps=SIM_FRAMES)
+    fem_state = st0
+
+    def fem_only():
+        nonlocal fem_state
+        fem_state, _ = integ.timestep(fem, fem_state, f_ext, cg_tol=CG_TOL)
+        return fem_state
+
+    fem_ms, st1 = sync_ms(fem_only, reps=SIM_FRAMES)
+    rbf_ms, w1 = sync_ms(lambda: disp_weights(interp, st1.q), reps=SIM_FRAMES)
+
+    def trace_only():
+        steps["trace_additive_wendland"] += 1
+        return trace_deformed_rbf_fast(scene, interp, w1, ro, rd, params,
+                                       image_hw=hw, need_grads=False,
+                                       k_refresh=K_REFRESH)
+
+    trace_ms, _ = sync_ms(trace_only, reps=SIM_FRAMES)
+    n_def = int(hit_def.sum())
+    if n_def <= 0 or not bool(torch.isfinite(t_def).all()) or (
+            t_def.shape != (WIDTH * HEIGHT,)):
+        raise AssertionError(f"coupled_step_fast: {n_def} hits, shape "
+                             f"{tuple(t_def.shape)}")
+    tele = {k: float(v) for k, v in
+            coupling_telemetry(interp, w1, st1.q).items()}
+    log(f"6.4 coupled_step_fast {WIDTH}x{HEIGHT}: {frame_ms:.3f} ms/frame, "
+        f"{1e3 / frame_ms:.3f} fps, {n_def} hits, CG iterations {cg_iters}; "
+        f"split fem {fem_ms:.3f} ms, rbf {rbf_ms:.3f} ms, trace "
+        f"{trace_ms:.3f} ms; telemetry {tele} {tag}")
+
+    interp_b = build_disp_interp(nodes, fixed=fixed, device=device)
+    with torch.no_grad():
+        bound_b = float(max_disp_bound(interp_b, disp_weights(interp_b, st1.q),
+                                       st1.q))
+    max_disp = MAX_DISP
+    while 1.5 * bound_b > max_disp:
+        max_disp += 0.25
+    e_scale = torch.tensor(1.0, device=device, requires_grad=True)
+    stats = {}
+    fwd_ms, (t_b, hit_b, st_b, it_b) = sync_ms(lambda: coupled_step_fast(
+        scene, fem, interp_b, st1, f_ext, ro, rd, E_scale=e_scale,
+        params=params, image_hw=hw, differentiable=True, max_disp=max_disp,
+        solve_stats=stats))
+    steps["trace_additive_biharmonic"] += 1
+    loss = torch.sum(torch.where(hit_b, t_b, 0.0))
+    bwd_ms, _ = sync_ms(loss.backward)
+    _check_grad("coupled_step_fast E_scale", e_scale.grad)
+    with torch.no_grad():
+        bound_b = float(max_disp_bound(
+            interp_b, disp_weights(interp_b, st_b.q), st_b.q))
+    if bound_b > max_disp or it_b != -1:
+        raise AssertionError(f"max_disp_bound {bound_b} > max_disp "
+                             f"{max_disp}, or iterations {it_b} != -1")
+    log(f"6.4 differentiable coupled_step_fast {WIDTH}x{HEIGHT} "
+        f"({interp_b.centers.shape[0]} biharmonic centers, max_disp "
+        f"{max_disp}, max_disp_bound {bound_b:.6f}): {int(hit_b.sum())} hits, "
+        f"dloss/dE {float(e_scale.grad):.6f}, CG iterations forward "
+        f"{stats['forward_iters']}, adjoint {stats['adjoint_iters']}; "
+        f"forward {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms {tag}")
+    del t_b, hit_b, loss, st_b
+    torch.cuda.empty_cache()
+
+    # 6.5 shaded images: K1's hits at full size, the dense renderers at
+    # the app's default frame.
+    def rest_hits():
+        steps["trace_additive_rest"] += 1
+        return tt.trace_tiles_image(scene, ro, rd, HEIGHT, WIDTH, params)
+
+    k1_ms, (t_rest, hit_rest) = sync_ms(rest_hits)
+    shade_ms, rgb = sync_ms(lambda: shade(scene, ro, rd, t_rest, hit_rest))
+    n_rest = int(hit_rest.sum())
+    if rgb.shape != (WIDTH * HEIGHT, 3) or n_rest <= 0 or not bool(
+            torch.isfinite(rgb).all()):
+        raise AssertionError("shaded rest frame not finite")
+    if bool((rgb[~hit_rest] != 1.0).any()) or float(
+            (rgb[hit_rest] - 1.0).abs().max()) == 0.0:
+        raise AssertionError("shaded rest frame: misses are not background "
+                             "or hits are")
+    cam = Camera.orbit(30.0, 20.0, 8.0, device=device)
+    sw, sh = SIM_IMAGE
+    img_ms, img_rest = sync_ms(lambda: render_image(scene, cam, sw, sh, params))
+    def_ms, img_def = sync_ms(lambda: render_deformed(
+        scene, grid, tm.grid_to_node, st1.q, cam, sw, sh, params))
+    for label, img in (("render_image", img_rest), ("render_deformed",
+                                                    img_def)):
+        if img.shape != (sh, sw, 3) or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"{label}: shape {tuple(img.shape)} or "
+                                 "non-finite pixels")
+    moved = int((torch.abs(img_def - img_rest).amax(-1) > 1e-3).sum())
+    if moved == 0:
+        raise AssertionError("the deformed image equals the rest image")
+    log(f"6.5 shaded rest frame {WIDTH}x{HEIGHT}: trace_tiles_image "
+        f"{k1_ms:.3f} ms, shade {shade_ms:.3f} ms for {n_rest} hits; "
+        f"{sw}x{sh} dense: render_image {img_ms:.3f} ms, render_deformed "
+        f"{def_ms:.3f} ms, {moved} pixels differ {tag}")
+
+    # 6.6 a scene of more than 96 ops: scan fold and the dense tracer.
+    deep = union_chain_over_100_ops().pack(device=device)
+    if len(deep.schedule) <= UNROLL_LIMIT:
+        raise AssertionError("the deep scene fits the unrolled fold")
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    pts = (torch.rand((65536, 3), generator=gen) * 2.4 - 1.2).to(device)
+    fold_ms, f_scan = sync_ms(lambda: field(deep, pts))
+    f_unrolled = field_via(deep, pts, "unrolled")
+    err = float((f_scan - f_unrolled).abs().max())
+    if not bool(torch.isfinite(f_scan).all()) or err > 1e-6 or float(
+            f_scan.max()) < 0.5:
+        raise AssertionError(f"scan fold: max |scan - unrolled| {err}")
+    ro_d, rd_d = image_rays(*SIM_DEEP_RAYS, device, pose=(30.0, 20.0, 5.0))
+    before = dict(tt.LAUNCHES)
+    deep_ms, (t_d, hit_d) = sync_ms(lambda: tt.trace_fast(deep, ro_d, rd_d,
+                                                          params))
+    if dict(tt.LAUNCHES) != before:
+        raise AssertionError("the deep scene launched a tile kernel")
+    if int(hit_d.sum()) <= 0 or not bool(torch.isfinite(t_d).all()):
+        raise AssertionError("the deep scene's trace has no hits")
+    log(f"6.6 {len(deep.schedule)}-op scene ({deep.fold_registers} fold "
+        f"registers): field at 65,536 points {fold_ms:.3f} ms, max |scan - "
+        f"unrolled| {err:.3e}; trace_fast {SIM_DEEP_RAYS[0]}x"
+        f"{SIM_DEEP_RAYS[1]} (dense tracer) {deep_ms:.3f} ms, "
+        f"{int(hit_d.sum())} hits {tag}")
+
+    launches = dict(tt.LAUNCHES)
+    log(f"launches in the simulation frame: {launches}, steps {steps}; "
+        f"phase total {time.perf_counter() - t_phase:.1f} s")
+    for name in steps:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the simulation "
+                                 "frame")
+    if launches["trace_general"] != 0:
+        raise AssertionError("the simulation frame launched the general "
+                             "kernel")
+    return launches, steps
+
+
 def launches_per_step(launches, steps):
     """Each kernel's launches over the steps its path drove; raises when a
     path launched its kernel another number of times a step than 1."""
@@ -746,14 +1081,23 @@ def main() -> int:
     # 5. the training path, counted
     launches_t, steps_t = training_phase(root, device, params, frame, tag,
                                          log)
-    steps.update(steps_t)
-    launches.update({k: launches_t[k] for k in steps_t})
-    per_step = launches_per_step(launches, steps)
+    torch.cuda.empty_cache()
+    # 6. the simulation frame, counted
+    launches_s, steps_s = simulation_frame_phase(root, device, params, tag,
+                                                 log)
+    paths = {"coupled_frame": (launches, steps),
+             "training": (launches_t, steps_t),
+             "simulation_frame": (launches_s, steps_s)}
+    by_path = {name: {} for name, _, _ in KERNELS}
+    for path, (counted, driven) in paths.items():
+        for name, per in launches_per_step(counted, driven).items():
+            by_path[name][path] = counted[name]
 
     kernels = [
         dict(name=name, route="cuda", source=source, replaces=replaces,
-             launches=launches[name], launches_per_step=per_step[name],
-             **results[name])
+             launches=sum(by_path[name].values()),
+             launches_per_step=LAUNCHES_PER_STEP,
+             launches_by_path=by_path[name], **results[name])
         for name, source, replaces in KERNELS
     ]
     print(json.dumps({"kernels": kernels}))

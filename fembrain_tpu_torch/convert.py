@@ -19,7 +19,8 @@ from . import default_device
 from .blob.scene import OpWire, Scene, WarpWire
 from .fem.grid_fem import GridFem, GridLevel
 from .fem.integrator import FemState
-from .mesh.polygonize import TetMesh
+from .fem.tetmesh import FemMesh
+from .mesh.polygonize import SurfaceMesh, TetMesh
 from .render.deformed import DispInterp
 
 
@@ -99,3 +100,14 @@ def disp_interp(fields: dict, device=None) -> DispInterp:
 
 def fem_state(fields: dict, device=None) -> FemState:
     return _build(FemState, fields, device)
+
+
+def fem_mesh_from_numpy(fields: dict, device=None) -> FemMesh:
+    """Unstructured FemMesh (element matrices, mass, fixed mask and the
+    gather-form assembly map as given)."""
+    return _build(FemMesh, fields, device, {"n_nodes": int, "n_tets": int})
+
+
+def surface_mesh_from_numpy(fields: dict, device=None) -> SurfaceMesh:
+    """Polygonized SurfaceMesh; the two counts stay tensors."""
+    return _build(SurfaceMesh, fields, device)

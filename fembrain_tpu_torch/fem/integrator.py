@@ -1,16 +1,28 @@
-"""Implicit-integrator state, preconditioned conjugate gradients and the
-adjoint-differentiable symmetric solve.
+"""Implicit integrator on an unstructured tet mesh, preconditioned
+conjugate gradients and the adjoint-differentiable symmetric solve.
 
-PyTorch counterpart of `FemState`, `pcg` and the custom_linear_solve use
-in fembrain_tpu/fem/integrator.py (the reference's solver stack,
-src/deformable/PS_VolumeConservingIntegrator.cpp:46-240 with the PCG
-branch, vegafem sparseSolver/CGSolver).
+PyTorch counterpart of fembrain_tpu/fem/integrator.py (the reference's
+solver stack, src/deformable/PS_VolumeConservingIntegrator.cpp:46-240
+with the PCG branch, vegafem sparseSolver/CGSolver): per step
+
+    K_eff = M + h (alpha M + beta K_rot) + h^2 K_rot
+    residual = -h ((h + beta) K_rot qdot + alpha M qdot + f_int - f_ext)
+    solve K_eff dv = residual   (block-Jacobi PCG, tol 1e-6, <= 10k iters)
+    qdot += dv;  q += h qdot;   fixed DOFs zeroed
+
+Constrained DOFs are handled by projection (identity rows) instead of the
+reference's RemoveRows/InsertRows repacking. Everything is matrix-free:
+K_rot v is the batched per-tet product of fem.corotational. `FemState`,
+`pcg` and `symmetric_solve` also serve the grid solver (fem.grid_fem).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+from . import corotational as co
+from .tetmesh import FemMesh
 
 # Reference integrator defaults (Deformable.cpp:208-216,
 # PS_VolumeConservingIntegrator.cpp:17-28).
@@ -27,6 +39,11 @@ class FemState:
     qvel: torch.Tensor  # velocities
     # Previous step's velocity delta: the CG warm start (None = cold).
     dv: torch.Tensor | None = None
+
+    @classmethod
+    def rest(cls, mesh: FemMesh) -> "FemState":
+        z = torch.zeros_like(mesh.rest)
+        return cls(q=z, qvel=z, dv=z)
 
 
 def _vdot(a, b):
@@ -107,3 +124,91 @@ def symmetric_solve(matvec, b, theta, solve, stats: dict | None = None):
     forward and adjoint alike; `stats`, if given, receives
     "forward_iters" and, after backward, "adjoint_iters"."""
     return _SymmetricSolve.apply(solve, matvec, stats, b, *theta)
+
+
+def timestep(
+    mesh: FemMesh,
+    state: FemState,
+    f_ext: torch.Tensor,
+    h: float = DEFAULT_TIMESTEP,
+    damping_mass: float = DEFAULT_DAMPING_MASS,
+    damping_stiffness: float = DEFAULT_DAMPING_STIFFNESS,
+    cg_tol: float = CG_TOL,
+    cg_max_iters: int = CG_MAX_ITERS,
+    differentiable: bool = False,
+    solve_stats: dict | None = None,
+) -> tuple[FemState, int]:
+    """One implicit step on the unstructured mesh; returns (new_state,
+    cg_iterations). The forward default warm-starts CG from state.dv.
+
+    With differentiable=True the solve runs cold through
+    `symmetric_solve`, so reverse-mode gradients reach the element
+    stiffness mesh.ke, the mass and the state through one adjoint solve
+    instead of through the CG iterations; the iteration count is then
+    reported as -1, and `solve_stats`, if given, receives
+    "forward_iters" and, after backward, "adjoint_iters"."""
+    # Index tensors as int64 once, not once per matvec.
+    mesh = dataclasses.replace(
+        mesh, tets=mesh.tets.long(),
+        node_gather=None if mesh.node_gather is None
+        else mesh.node_gather.long())
+    free = ~mesh.fixed[:, None]  # [N,1] broadcast over xyz
+
+    _, R = co.element_kinematics(mesh, state.q)
+    f_int = co.internal_forces(mesh, state.q, R)
+    m = mesh.mass[:, None]
+
+    # R is constant across the CG solve: materialize R Ke R^T once so the
+    # per-iteration matvec is a single batched 12x12 product.
+    krot = co.rotated_stiffness(mesh, R)
+
+    kq = co.stiffness_apply_pre(mesh, krot, state.qvel)
+    residual = -h * (
+        (h + damping_stiffness) * kq
+        + damping_mass * m * state.qvel
+        + f_int
+        - f_ext
+    )
+    residual = torch.where(free, residual, 0.0)
+
+    mass_coef = 1.0 + h * damping_mass
+    stiff_coef = h * damping_stiffness + h * h
+
+    def operator(v, krot_, m_):
+        vf = torch.where(free, v, 0.0)
+        out = mass_coef * m_ * vf + stiff_coef * co.stiffness_apply_pre(
+            mesh, krot_, vf
+        )
+        return torch.where(free, out, v)
+
+    # 3x3 block-Jacobi preconditioner: per-node diagonal blocks of K_eff,
+    # inverted once per step (identity on fixed nodes, matching the
+    # operator's identity rows there). Not differentiated.
+    with torch.no_grad():
+        eye = torch.eye(3, dtype=residual.dtype, device=residual.device)
+        blocks = (mass_coef * m)[..., None] * eye + stiff_coef * (
+            co.stiffness_blocks(mesh, krot)
+        )
+        inv_blocks = co._inv3(torch.where(free[..., None], blocks, eye))
+
+    def prec(r):
+        return (inv_blocks @ r[..., None])[..., 0]
+
+    if differentiable:
+        # No warm start: the adjoint system reuses the solver, where the
+        # primal guess would be wrong.
+        dv = symmetric_solve(
+            operator, residual, (krot, m),
+            lambda mv, b: pcg(mv, b, prec, cg_tol, cg_max_iters),
+            solve_stats,
+        )
+        iters = -1
+    else:
+        x0 = None if state.dv is None else torch.where(free, state.dv, 0.0)
+        dv, iters = pcg(lambda v: operator(v, krot, m), residual, prec,
+                        cg_tol, cg_max_iters, x0=x0)
+        if solve_stats is not None:
+            solve_stats["forward_iters"] = iters
+    qvel = torch.where(free, state.qvel + dv, 0.0)
+    q = torch.where(free, state.q + h * qvel, 0.0)
+    return FemState(q=q, qvel=qvel, dv=dv), iters

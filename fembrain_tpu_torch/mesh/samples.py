@@ -1,11 +1,17 @@
 """Anchor sets for tet meshes.
 
-Counterpart of `bottom_nodes_per_component` in
+Counterpart of `bottom_nodes` and `bottom_nodes_per_component` in
 fembrain_tpu/mesh/samples.py, in numpy on the host (its union-find, not
 the JAX package's native one)."""
 from __future__ import annotations
 
 import numpy as np
+
+
+def bottom_nodes(nodes: np.ndarray, tol: float = 1e-6) -> np.ndarray:
+    """Indices of nodes at the minimum y (typical fixed set)."""
+    ymin = nodes[:, 1].min()
+    return np.where(nodes[:, 1] <= ymin + tol)[0]
 
 
 def bottom_nodes_per_component(nodes: np.ndarray, tets: np.ndarray,

@@ -8,14 +8,16 @@ the plain version of the prim evaluator inside the CUDA trace kernels
 (csrc/prim_field.cuh), and `field_rows` that of the general kernel's
 per-point field (csrc/trace_general.cu).
 
-Scenes with more than UNROLL_LIMIT scheduled ops (the reference's
-register-allocated scan fold) are not ported yet.
+Scenes with more than UNROLL_LIMIT scheduled ops fold through the
+register-allocated plan (`_fold_scan`), which keeps at most
+`scene.fold_registers` op values alive however many operators the
+instance-flattened scene has.
 """
 from __future__ import annotations
 
 import torch
 
-from ..blob.scene import Scene
+from ..blob.scene import SRC_PRIM, SRC_RANGE, SRC_REG, Scene
 from ..blob.types import OpType, PrimType
 from .warp import warp_components, warp_point
 
@@ -323,13 +325,15 @@ def _op_range(otype: int, fields, params):
     return torch.sum(fields, -1)  # BLEND and everything else: sum
 
 
-# Above this op count the reference folds with a register-allocated scan
-# (not ported yet).
+# Above this op count `field` folds through the register-allocated plan;
+# the per-point evaluator `field_rows` (and the general tile-trace kernel
+# it is the plain version of) stops here, as the reference's does.
 UNROLL_LIMIT = 96
 
 
 def supports_rows_fast_path(scene: Scene) -> bool:
-    """Whether the fold is small enough to unroll."""
+    """Whether the fold is small enough for the unrolled per-point
+    evaluator `field_rows` and the general tile-trace kernel."""
     return len(scene.schedule) <= UNROLL_LIMIT
 
 
@@ -351,17 +355,87 @@ def _fold_unrolled(scene: Scene, pf: torch.Tensor) -> torch.Tensor:
     return op_vals[scene.root_idx]
 
 
+def _range_values_segmented(scene: Scene, pf: torch.Tensor) -> torch.Tensor:
+    """All range-op values at once via segment reductions: [n_ranges, N].
+
+    Range spans are disjoint (each primitive has exactly one parent), so
+    one segment id per primitive column computes every range op's
+    reduction in one pass; columns outside every range go to a dump
+    segment that is sliced off."""
+    ranges = [(k, scene.wiring[k]) for k in scene.schedule
+              if scene.wiring[k].is_range]
+    R = len(ranges)
+    N, P = pf.shape
+    if R == 0:
+        return pf.new_zeros((1, N))
+    dev = pf.device
+    seg_h = [R] * P
+    for slot, (_, w) in enumerate(ranges):
+        seg_h[w.left : w.right + 1] = [slot] * (w.right + 1 - w.left)
+    otypes_h = [w.otype for _, w in ranges]
+    seg = torch.tensor(seg_h, dtype=torch.long, device=dev)
+    otypes = torch.tensor(otypes_h, device=dev)[:, None]          # [R, 1]
+    pfT = pf.T                                                     # [P, N]
+    present = set(otypes_h)
+
+    def seg_reduce(src, how):
+        idx = seg[:, None].expand(P, N)
+        return src.new_zeros((R + 1, N)).scatter_reduce(
+            0, idx, src, how, include_self=False)[:R]
+
+    rv = pf.new_zeros((R + 1, N)).index_add(0, seg, pfT)[:R]
+    if int(OpType.UNION) in present:
+        rv = torch.where(otypes == int(OpType.UNION),
+                         seg_reduce(pfT, "amax"), rv)
+    if int(OpType.INTERSECT) in present:
+        rv = torch.where(otypes == int(OpType.INTERSECT),
+                         seg_reduce(pfT, "amin"), rv)
+    if int(OpType.RICCI_BLEND) in present:
+        # Per-prim power = its range op's power; dump columns get power 1.
+        ks = torch.tensor([k for k, _ in ranges], device=dev)
+        pw_slot = scene.op_params[ks, 0]
+        inv_slot = scene.op_params[ks, 1]
+        pw_col = torch.cat([pw_slot, pw_slot.new_ones(1)])[seg]
+        spow = pf.new_zeros((R + 1, N)).index_add(
+            0, seg, torch.pow(pfT, pw_col[:, None]))[:R]
+        rv = torch.where(otypes == int(OpType.RICCI_BLEND),
+                         torch.pow(spow, inv_slot[:, None]), rv)
+    return rv
+
+
+def _fold_scan(scene: Scene, pf: torch.Tensor) -> torch.Tensor:
+    """Fold over the register-allocated plan: a register file of
+    `scene.fold_registers` op values [N] (the tree-depth bound), range
+    values from `_range_values_segmented`. A register's old value is
+    dropped when its slot is written, so live memory stays flat however
+    many operators the scene has."""
+    rv = _range_values_segmented(scene, pf)
+    zero = pf.new_zeros(pf.shape[0])
+    regs = [zero] * scene.fold_registers
+
+    def fetch(kind, idx):
+        if kind == SRC_REG:
+            return regs[idx]
+        if kind == SRC_PRIM:
+            return pf[:, idx]
+        if kind == SRC_RANGE:
+            return rv[idx]
+        return zero
+
+    for k, otype, dst, lk, li, rk, ri in scene.fold_plan:
+        regs[dst] = _op_apply(min(max(otype, 0), 12), fetch(lk, li),
+                              fetch(rk, ri), scene.op_params[k])
+    return regs[scene.root_reg]
+
+
 def _fold(scene: Scene, pf: torch.Tensor) -> torch.Tensor:
     """Operator fold over a primitive-field matrix [N, P] -> [N]."""
     if not scene.root_is_op:
         # No operators: blend (sum) all primitives (Polygonizer.cpp:2088-2097).
         return torch.sum(pf[:, : scene.n_prims], -1)
-    if not supports_rows_fast_path(scene):
-        raise NotImplementedError(
-            f"scan fold for {len(scene.schedule)} ops (> {UNROLL_LIMIT}) "
-            "is not ported"
-        )
-    return _fold_unrolled(scene, pf)
+    if len(scene.schedule) <= UNROLL_LIMIT:
+        return _fold_unrolled(scene, pf)
+    return _fold_scan(scene, pf)
 
 
 def field(scene: Scene, points: torch.Tensor) -> torch.Tensor:
@@ -369,6 +443,74 @@ def field(scene: Scene, points: torch.Tensor) -> torch.Tensor:
     shape = points.shape[:-1]
     pts = points.reshape(-1, 3)
     return _fold(scene, prim_fields(scene, pts)).reshape(shape)
+
+
+def field_via(scene: Scene, points: torch.Tensor,
+              strategy: str) -> torch.Tensor:
+    """Field evaluation with an explicit fold strategy: 'unrolled' (the
+    dataflow unroll over the schedule) or 'scan' (the register-file fold
+    over the plan). Both give the same values; `field` picks by op
+    count."""
+    shape = points.shape[:-1]
+    pf = prim_fields(scene, points.reshape(-1, 3))
+    if not scene.root_is_op:
+        return torch.sum(pf[:, : scene.n_prims], -1).reshape(shape)
+    if strategy == "unrolled":
+        out = _fold_unrolled(scene, pf)
+    elif strategy == "scan":
+        out = _fold_scan(scene, pf)
+    else:
+        raise ValueError(f"unknown fold strategy {strategy!r}")
+    return out.reshape(shape)
+
+
+def _field_color(scene: Scene, pts: torch.Tensor):
+    """(field [N], colour [N, 4]) from ONE primitive pass: the colour is
+    the field-weighted mean of the primitives' diffuse colours
+    (Polygonizer.cl:895-1128 `ComputeFieldAndColor`)."""
+    pf = prim_fields(scene, pts)
+    n = scene.n_prims
+    w = pf[:, :n]
+    wsum = torch.sum(w, -1, keepdim=True)
+    col = (w @ scene.prim_color[:n]) / torch.clamp(wsum, min=1e-8)
+    return _fold(scene, pf), col
+
+
+def field_and_color(scene: Scene, points: torch.Tensor):
+    """Field plus field-weighted material color [..., 3] -> ([...],
+    [..., 4])."""
+    shape = points.shape[:-1]
+    f, col = _field_color(scene, points.reshape(-1, 3))
+    return f.reshape(shape), col.reshape(*shape, 4)
+
+
+def vertex_attributes(scene: Scene, points: torch.Tensor, warp=None,
+                      warp_inputs=()):
+    """(field, gradient, color) at points [..., 3] in one primitive
+    evaluation and one backward sweep (the reference's
+    ComputeVertexAttribs, Polygonizer.cl:1429-1561, pays 6 field
+    evaluations per vertex). Points are independent, so the gradient of
+    f.sum() with respect to the points is the per-point gradient.
+
+    `warp`, if given, maps the points [N, 3] -> [N, 3] before the field
+    (a deformation's pull-back): field and colour are then taken at the
+    warped points and the gradient is that of the composed field;
+    `warp_inputs` are the tensors the map closes over. The three results
+    carry a graph when the points, a scene parameter or a warp input
+    requires grad, and are constants otherwise."""
+    shape = points.shape[:-1]
+    pts = points.reshape(-1, 3)
+    keep = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (
+            pts, scene.prim_pos, scene.prim_dir, scene.prim_res,
+            scene.prim_mtx, scene.prim_color, scene.op_params, *warp_inputs))
+    with torch.enable_grad():
+        p = pts if pts.requires_grad else pts.detach().requires_grad_(True)
+        f, col = _field_color(scene, p if warp is None else warp(p))
+        (g,) = torch.autograd.grad(f.sum(), p, create_graph=keep)
+    if not keep:
+        f, col = f.detach(), col.detach()
+    return f.reshape(shape), g.reshape(*shape, 3), col.reshape(*shape, 4)
 
 
 def field_rows(scene: Scene, x: torch.Tensor, y: torch.Tensor,
@@ -382,9 +524,9 @@ def field_rows(scene: Scene, x: torch.Tensor, y: torch.Tensor,
     (csrc/trace_general.cu). `prim_live` [N, P] bool masks prim fields to
     0 before the fold, as the kernel's culled prims contribute."""
     if not supports_rows_fast_path(scene):
-        raise NotImplementedError(
-            f"scan fold for {len(scene.schedule)} ops (> {UNROLL_LIMIT}) "
-            "is not ported"
+        raise ValueError(
+            f"field_rows unrolls at most {UNROLL_LIMIT} ops, the scene "
+            f"schedules {len(scene.schedule)}; use `field`"
         )
     x, y, z = x[:, None], y[:, None], z[:, None]
     mtx = scene.prim_mtx[None]

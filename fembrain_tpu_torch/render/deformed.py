@@ -1,7 +1,18 @@
-"""Coupled render+deform through an RBF displacement field.
+"""Coupled render+deform: sphere-trace the FEM-deformed implicit field.
 
-PyTorch counterpart of the RBF part of fembrain_tpu/render/deformed.py.
-The FEM displacement is interpolated by an RBF u(x) over M centers picked
+PyTorch counterpart of fembrain_tpu/render/deformed.py. The coupling is in
+FIELD space: the deformation map phi(x) = x + u(x) turns the rest field f
+into the deformed field F(y) = f(phi^{-1}(y)), whose iso surface is the
+deformed tissue surface; phi^{-1} is the fixed point x <- y - u(x), a
+contraction at soft-tissue strains, unrolled a few steps so it is plainly
+differentiable.
+
+The exact path takes u as the FEM nodal displacement, trilinearly
+interpolated on the polygonizer's voxel grid (`displacement_grid`,
+`sample_displacement`, `trace_deformed`, `render_deformed`,
+`coupled_step`): 8 gathers per sample, a dense fixed-step march.
+
+On the fast path the FEM displacement is interpolated by an RBF u(x) over M centers picked
 among the mesh nodes: the biharmonic kernel |x - c| with an affine tail
 (the default, global support) or the compact-support Wendland C2 kernel.
 The deformed field F(y) = f(x) with x = y - u(x) is traced by the tile
@@ -11,8 +22,9 @@ they are checked against. Either way the hit parameter's gradient comes
 from implicit differentiation at the root against the dense deformed
 field (sphere_trace.newton_nudge), so image losses reach the RBF weights
 and through them the FEM state. `coupled_step_grid_fast` is the coupled
-frame: grid-FEM step -> RBF weights -> trace, differentiable in Young's
-modulus with `differentiable=True`.
+frame on the grid solver (grid-FEM step -> RBF weights -> trace) and
+`coupled_step_fast` the same frame on the unstructured solver; both are
+differentiable in Young's modulus with `differentiable=True`.
 """
 from __future__ import annotations
 
@@ -23,10 +35,13 @@ import torch
 
 from .. import default_device
 from ..blob.scene import Scene
-from ..ops.field import field, supports_rows_fast_path
+from ..graphics.materials import PHONG, Material
+from ..mesh.polygonize import GridSpec
+from ..ops.field import field, supports_rows_fast_path, vertex_attributes
+from .camera import generate_rays
 from .sphere_trace import (
     TraceParams, _ray_box, march_all, newton_nudge, prim_interval,
-    support_radius_bound,
+    shade_hits, support_radius_bound,
 )
 from .tile_trace import (
     CEN_BLOCK, TILE, BiharmonicSpec, WendlandSpec, is_additive_path,
@@ -40,6 +55,132 @@ FIXED_POINT_ITERS = 2
 WENDLAND_SIGMA_FILL = 3.0
 # max_t |d/dt (1-t)^4 (4t+1)| = 20 t (1-t)^3 at t = 1/4.
 WENDLAND_DPHI_MAX = 2.109375
+
+
+def displacement_grid(grid: GridSpec, grid_to_node: torch.Tensor,
+                      u: torch.Tensor) -> torch.Tensor:
+    """Scatter FEM nodal displacements onto the voxel grid: [X, Y, Z, 3].
+
+    Grid vertices that are not tet nodes get zero displacement; every
+    cell the iso surface passes through has all 8 corners as tet nodes
+    (extract_tet_mesh marks inside+crossed cells), so interpolation near
+    the surface uses real nodal values only."""
+    safe = torch.clamp(grid_to_node, min=0).long()
+    ug = torch.where((grid_to_node >= 0)[:, None], u[safe], 0.0)
+    X, Y, Z = grid.dims
+    return ug.reshape(X, Y, Z, 3)
+
+
+def sample_displacement(grid: GridSpec, u_grid: torch.Tensor,
+                        pts: torch.Tensor) -> torch.Tensor:
+    """Trilinear displacement sample at world points [N, 3] -> [N, 3].
+    Clamps to the grid (zero-displacement padding outside the mesh)."""
+    X, Y, Z = grid.dims
+    origin = torch.tensor(grid.lo, dtype=pts.dtype, device=pts.device)
+    rel = (pts - origin) / grid.cellsize
+    dims = torch.tensor([X, Y, Z], dtype=pts.dtype, device=pts.device)
+    rel = torch.minimum(torch.clamp(rel, min=0.0), dims - 1.0 - 1e-6)
+    i0 = torch.minimum(
+        torch.floor(rel).long(),
+        torch.tensor([X - 2, Y - 2, Z - 2], device=pts.device))
+    fr = rel - i0
+    # One flat gather per corner of the cell.
+    flat = u_grid.reshape(-1, 3)
+    base = (i0[:, 0] * Y + i0[:, 1]) * Z + i0[:, 2]
+
+    def corner(dx, dy, dz):
+        return flat[base + ((dx * Y + dy) * Z + dz)]
+
+    wx = fr[:, 0:1]
+    wy = fr[:, 1:2]
+    wz = fr[:, 2:3]
+    c00 = corner(0, 0, 0) * (1 - wz) + corner(0, 0, 1) * wz
+    c01 = corner(0, 1, 0) * (1 - wz) + corner(0, 1, 1) * wz
+    c10 = corner(1, 0, 0) * (1 - wz) + corner(1, 0, 1) * wz
+    c11 = corner(1, 1, 0) * (1 - wz) + corner(1, 1, 1) * wz
+    c0 = c00 * (1 - wy) + c01 * wy
+    c1 = c10 * (1 - wy) + c11 * wy
+    return c0 * (1 - wx) + c1 * wx
+
+
+def pull_back(grid: GridSpec, u_grid: torch.Tensor, y: torch.Tensor,
+              iters: int = FIXED_POINT_ITERS) -> torch.Tensor:
+    """Invert phi(x) = x + u(x): fixed-point x <- y - u(x), unrolled so
+    the inverse map is differentiable through plain autograd."""
+    x = y
+    for _ in range(iters):
+        x = y - sample_displacement(grid, u_grid, x)
+    return x
+
+
+def deformed_field(scene: Scene, grid: GridSpec, u_grid: torch.Tensor,
+                   y: torch.Tensor) -> torch.Tensor:
+    """F(y) = f(phi^{-1}(y)): the implicit field of the deformed tissue."""
+    return field(scene, pull_back(grid, u_grid, y))
+
+
+def trace_deformed(scene: Scene, grid: GridSpec, u_grid: torch.Tensor,
+                   ro: torch.Tensor, rd: torch.Tensor,
+                   params: TraceParams = TraceParams(),
+                   max_disp: float = 0.5):
+    """Sphere-trace the trilinearly deformed field, densely. Fixed-step
+    march (the Wyvill support bound does not survive an arbitrary warp),
+    slab bracket expanded by `max_disp` so the deformed surface stays
+    inside. Returns (t_hit, hit_mask); t_hit is differentiable in u_grid
+    and the scene by implicit differentiation at the root (the march and
+    the root's slope are constants)."""
+    iso = params.iso
+    lo = scene.bbox_lo - 0.05 - max_disp
+    hi = scene.bbox_hi + 0.05 + max_disp
+    t_enter, t_exit = _ray_box(ro, rd, lo[None], hi[None])
+    alive0 = t_exit > t_enter
+    t_enter = torch.where(alive0, t_enter, 0.0)
+    t_exit = torch.where(alive0, t_exit, 0.0)
+    base_step = torch.linalg.norm(hi - lo) * params.step_frac
+
+    def f_minus_iso(p):
+        return deformed_field(scene, grid, u_grid, p) - iso
+
+    with torch.no_grad():
+        t_root, found = march_all(
+            lambda t: f_minus_iso(ro + t[:, None] * rd),
+            lambda fv: base_step, t_enter, t_exit, alive0, params)
+    return newton_nudge(f_minus_iso, ro, rd, t_root, found,
+                        0.5 * base_step), found
+
+
+def shade_deformed(scene: Scene, grid: GridSpec, u_grid: torch.Tensor,
+                   ro, rd, t_hit, hit_mask,
+                   light_dir=(0.577, 0.577, 0.577),
+                   background=(1.0, 1.0, 1.0),
+                   material: Material = PHONG, texture=None,
+                   texture_scale: float = 1.0):
+    """Blinn-Phong shading of the deformed surface: normals from the
+    deformed field's gradient (exact normals of the warped surface),
+    material color sampled at the pulled-back rest point. `texture`
+    ([H, W, 3] tensor) modulates the albedo by triplanar sampling at the
+    REST point, so the pattern sticks to the deforming tissue."""
+    def warp(p):
+        return pull_back(grid, u_grid, p)
+
+    def attrs(x):
+        _, g, col = vertex_attributes(scene, x, warp, (u_grid,))
+        return g, col, (warp(x) if texture is not None else x)
+
+    return shade_hits(attrs, ro, rd, t_hit, hit_mask, light_dir, background,
+                      material, texture, texture_scale)
+
+
+def render_deformed(scene: Scene, grid: GridSpec, grid_to_node: torch.Tensor,
+                    u: torch.Tensor, cam, width: int, height: int,
+                    params: TraceParams = TraceParams()) -> torch.Tensor:
+    """[H, W, 3] image of the tissue displaced by FEM state u [N, 3]."""
+    ro, rd = generate_rays(cam, width, height)
+    ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
+    u_grid = displacement_grid(grid, grid_to_node, u)
+    t, hit = trace_deformed(scene, grid, u_grid, ro, rd, params)
+    rgb = shade_deformed(scene, grid, u_grid, ro, rd, t, hit)
+    return rgb.reshape(height, width, 3)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -250,13 +391,24 @@ def disp_bounds_sampled(interp: DispInterp, w: torch.Tensor,
 
 
 def wendland_spec(interp: DispInterp, w: torch.Tensor,
-                  k_refresh: int = 0) -> WendlandSpec:
+                  k_refresh: int = 0,
+                  certified: bool = False) -> WendlandSpec:
     """Per-frame spec for the Wendland tile trace (K2): centers padded to
     a CEN_BLOCK multiple (pad rows at 1e6 with zero weights never test
-    live), plus per-block |u| and |grad u| maxima sampled at the centers
-    (exact there, extended between samples by the march's 1.15 / 1.25
-    safety factors). Each eval of the trace refreshes with one
-    fixed-point pull-back iteration."""
+    live), plus the per-block march-bound inputs. Each eval of the trace
+    refreshes with one fixed-point pull-back iteration.
+
+    certified=False: bu/bg are |u| and |grad u| SAMPLED at the centers
+    (exact there) and extended between samples by the march's 1.15 / 1.25
+    safety factors: tight, but a heuristic, since |u| between centers can
+    in principle exceed the factored sample maxima, and then the march
+    oversteps silently. certified=True: bu/bg are rigorous per-block
+    bounds: every point within reach of block b's support satisfies
+    |u(x)| <= sum of |w_k| over the blocks whose boxes lie within 2 sigma
+    of b's (phi <= 1), and |grad u| likewise with the kernel's slope
+    bound. Loose (no cancellation), so marches slow down, but the step
+    bounds then hold unconditionally. The bracket inflation `max_disp` is
+    this frame's |u| bound from bu/bg."""
     if interp.kind != "wendland":
         raise ValueError(f"wendland_spec needs a Wendland interpolant, got "
                          f"{interp.kind!r}")
@@ -270,27 +422,42 @@ def wendland_spec(interp: DispInterp, w: torch.Tensor,
         wr = torch.cat([wk, wk.new_zeros((mp - m, 3))], 0)
     waff = w[m:].T.float()
     c = interp.centers
-    diff = c[:, None] - c[None]                              # [M, M, 3]
-    d = torch.sqrt(torch.clamp(torch.sum(diff * diff, -1), min=1e-24))
-    u_c = _phi_dist(interp, d) @ wk + w[m] + c @ w[m + 1:]
-    g_c = torch.einsum(
-        "jka,kb->jab", diff * _dphi_over_d(interp, d)[..., None], wk
-    ) + w[m + 1:]
-    un = torch.sqrt(torch.sum(u_c * u_c, -1))
-    gn = torch.sqrt(torch.sum(g_c * g_c, (-2, -1)))
-    if mp > m:
-        un = torch.cat([un, un.new_zeros(mp - m)], 0)
-        gn = torch.cat([gn, gn.new_zeros(mp - m)], 0)
-    bu = un.reshape(-1, CEN_BLOCK).amax(1)
-    bg = gn.reshape(-1, CEN_BLOCK).amax(1)
+
+    def pad(v):
+        return torch.cat([v, v.new_zeros(mp - m)], 0) if mp > m else v
+
+    if certified:
+        blk_sum = pad(torch.sqrt(torch.sum(wk * wk, -1))).reshape(
+            -1, CEN_BLOCK).sum(1)                            # [NBc]
+        cb = cen.reshape(-1, CEN_BLOCK, 3)
+        b_lo, b_hi = cb.amin(1), cb.amax(1)
+        reach = 2.0 * interp.sigma
+        near = torch.all((b_lo[:, None] <= b_hi[None] + reach)
+                         & (b_hi[:, None] >= b_lo[None] - reach), -1)
+        bu = near.to(blk_sum.dtype) @ blk_sum
+        bg = (WENDLAND_DPHI_MAX / interp.sigma) * bu
+    else:
+        diff = c[:, None] - c[None]                          # [M, M, 3]
+        d = torch.sqrt(torch.clamp(torch.sum(diff * diff, -1), min=1e-24))
+        u_c = _phi_dist(interp, d) @ wk + w[m] + c @ w[m + 1:]
+        g_c = torch.einsum(
+            "jka,kb->jab", diff * _dphi_over_d(interp, d)[..., None], wk
+        ) + w[m + 1:]
+        un = torch.sqrt(torch.sum(u_c * u_c, -1))
+        gn = torch.sqrt(torch.sum(g_c * g_c, (-2, -1)))
+        bu = pad(un).reshape(-1, CEN_BLOCK).amax(1)
+        bg = pad(gn).reshape(-1, CEN_BLOCK).amax(1)
     bfr = torch.sqrt(torch.sum(w[m + 1:] ** 2))
-    # Max over centers (u interpolates there) with the between-sample
-    # safety, plus the Lipschitz fill term.
-    max_disp = 1.15 * torch.amax(bu) + torch.amax(bg) * interp.fill_dist
+    if certified:
+        max_disp = torch.amax(bu)
+    else:
+        # Max over centers (u interpolates there) with the between-sample
+        # safety, plus the Lipschitz fill term.
+        max_disp = 1.15 * torch.amax(bu) + torch.amax(bg) * interp.fill_dist
     return WendlandSpec(
-        centers=cen, w=wr, waff=waff, bu=bu, bg=bg, bfr=bfr,
-        max_disp=max_disp.float(), sigma=float(interp.sigma),
-        k_refresh=int(k_refresh),
+        centers=cen, w=wr, waff=waff, bu=bu.detach(), bg=bg.detach(),
+        bfr=bfr.detach(), max_disp=max_disp.float().detach(),
+        sigma=float(interp.sigma), k_refresh=int(k_refresh),
     )
 
 
@@ -435,6 +602,71 @@ def trace_deformed_rbf_fast(scene: Scene, interp: DispInterp,
     return t_hit, found
 
 
+def coupled_step_fast(scene: Scene, fem_mesh, interp: DispInterp,
+                      state, f_ext: torch.Tensor,
+                      ro: torch.Tensor, rd: torch.Tensor,
+                      h: float = 0.0333,
+                      E_scale: torch.Tensor | float | None = 1.0,
+                      params: TraceParams = TraceParams(),
+                      image_hw: tuple[int, int] | None = None,
+                      differentiable: bool = False,
+                      cg_tol: float | None = None,
+                      max_disp: float = 0.5,
+                      fp_iters: int = FIXED_POINT_ITERS,
+                      bound_pts: torch.Tensor | None = None,
+                      tile: int = TILE, k_refresh: int = 0,
+                      solve_stats: dict | None = None):
+    """The coupled frame on the unstructured solver: force -> implicit
+    FEM step (fem.integrator.timestep on a fem.tetmesh.FemMesh, `state`
+    and f_ext [N, 3]) -> RBF weights (one product) -> deformed tile
+    trace. differentiable=False, the rendering default, warm-starts PCG
+    from state.dv; differentiable=True is the training step: the solve
+    runs cold and adjoint-differentiable and the trace applies its
+    implicit-differentiation correction, so a loss on t reaches E_scale
+    (which scales the element stiffness, Young's modulus) and the scene.
+    max_disp inflates the biharmonic trace's brackets and must bound the
+    frame's |u| (see coupling_telemetry). Returns (t, hit, new_state,
+    cg_iterations); the count is -1 on the differentiable solve, whose
+    counts go to `solve_stats`."""
+    from ..fem import integrator as integ
+
+    mesh2 = fem_mesh if E_scale is None else dataclasses.replace(
+        fem_mesh, ke=fem_mesh.ke * E_scale)
+    kw = {} if cg_tol is None else {"cg_tol": cg_tol}
+    new_state, iters = integ.timestep(mesh2, state, f_ext, h=h,
+                                      differentiable=differentiable,
+                                      solve_stats=solve_stats, **kw)
+    w = disp_weights(interp, new_state.q)
+    t, hit = trace_deformed_rbf_fast(
+        scene, interp, w, ro, rd, params, max_disp=max_disp,
+        image_hw=image_hw, fp_iters=fp_iters, need_grads=differentiable,
+        bound_pts=bound_pts, tile=tile, k_refresh=k_refresh,
+    )
+    return t, hit, new_state, iters
+
+
+def coupled_step(scene: Scene, fem_mesh, grid: GridSpec,
+                 grid_to_node: torch.Tensor, state, f_ext: torch.Tensor,
+                 ro: torch.Tensor, rd: torch.Tensor,
+                 h: float = 0.0333,
+                 E_scale: torch.Tensor | float = 1.0,
+                 params: TraceParams = TraceParams()):
+    """The exact differentiable frame: force -> implicit FEM solve
+    (adjoint-differentiable) -> trilinear displacement field -> dense
+    deformed trace. Returns (t_hit, hit_mask, new_state). E_scale scales
+    Young's modulus, so d(image loss)/d(E_scale) is the material
+    gradient; gradients also reach the BlobTree's parameters through the
+    rest field."""
+    from ..fem import integrator as integ
+
+    mesh2 = dataclasses.replace(fem_mesh, ke=fem_mesh.ke * E_scale)
+    new_state, _ = integ.timestep(mesh2, state, f_ext, h=h,
+                                  differentiable=True)
+    u_grid = displacement_grid(grid, grid_to_node, new_state.q)
+    t, hit = trace_deformed(scene, grid, u_grid, ro, rd, params)
+    return t, hit, new_state
+
+
 def coupled_step_grid_fast(scene: Scene, gf, interp: DispInterp,
                            center_grid_idx: torch.Tensor,
                            state, f_ext: torch.Tensor,
@@ -486,3 +718,22 @@ def max_disp_bound(interp: DispInterp, w: torch.Tensor,
     `max_disp` bracket inflation covers the frame."""
     u_c = torch.sqrt(torch.sum(q[interp.center_nodes.long()] ** 2, -1))
     return torch.amax(u_c) + disp_lipschitz(interp, w) * interp.fill_dist
+
+
+def coupling_telemetry(interp: DispInterp, w: torch.Tensor,
+                       q: torch.Tensor) -> dict:
+    """Per-frame coupling health: the displacement Lipschitz bound L, the
+    adaptive march's shrink factor clamp(1 - L) (0 means the trace
+    degraded to fixed stepping), and the max-|u| bound that must stay
+    under the static max_disp inflation. Tensors on the device: log them,
+    do not branch on them. q is the full nodal state [N, 3] or the
+    already gathered center rows [M, 3]."""
+    L = disp_lipschitz(interp, w)
+    u = q if q.shape[0] == interp.centers.shape[0] else (
+        q[interp.center_nodes.long()])
+    u_c = torch.sqrt(torch.sum(u ** 2, -1))
+    return {
+        "disp_lipschitz": L,
+        "march_shrink": torch.clamp(1.0 - L, 0.0, 1.0),
+        "max_disp_bound": torch.amax(u_c) + L * interp.fill_dist,
+    }

@@ -48,8 +48,8 @@ import torch
 from ..blob.scene import SRC_RANGE, Scene
 from ..blob.types import PrimType
 from ..ops.field import (
-    field, field_rows, local_coords, point_merge_target, rows_prim_fields,
-    supports_rows_fast_path,
+    UNROLL_LIMIT, field, field_rows, local_coords, point_merge_target,
+    rows_prim_fields, supports_rows_fast_path,
 )
 from ..ops.warp import warp_components
 from .sphere_trace import (
@@ -685,8 +685,9 @@ def prepare_general(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
     bracket is `prim_interval` where the prim support boxes bound the
     field, else the scene slab with margin 0.05, zeroed on dead rays."""
     if not supports_rows_fast_path(scene):
-        raise NotImplementedError(
-            f"scan fold for {len(scene.schedule)} ops is not ported")
+        raise ValueError(
+            f"the general tile trace unrolls at most {UNROLL_LIMIT} ops, the "
+            f"scene schedules {len(scene.schedule)}; use sphere_trace.trace")
     dev = ro.device
     ro, rd = _pad_rays(ro, rd, tile)
     lo = scene.bbox_lo - 0.05

@@ -4,7 +4,7 @@ scene module of either package (`fembrain_tpu.blob.scene` or
 imports no JAX: the card-only tests use it where JAX is
 not installed. The two scenes chip_smoke.py drives as well also have a
 function in the port (`fembrain_tpu_torch.blob.examples`, the port's own
-scene module only); the functions here share its constants and are held to
+scene module only), as has the union chain; the functions here share its constants and are held to
 it below."""
 import dataclasses
 import importlib
@@ -54,6 +54,31 @@ def blend_twist(mod):
         OpType.WARP_TWIST, left=blend, left_is_op=True, is_unary=True,
         params=np.array(examples.TWIST_PARAMS)))
     sc.root_is_op = True
+    return sc
+
+
+def union_chain_over_100_ops(mod):
+    """A left-deep chain of binary UNIONs over spheres on a helix with a
+    range BLEND and a Ricci range blend at its start, as
+    `examples.union_chain_over_100_ops`: more ops than the unrolled fold
+    takes."""
+    sc = mod.SceneDef()
+    nb, nr = examples.CHAIN_BLEND, examples.CHAIN_RICCI
+    n = nb + nr + examples.CHAIN_LINKS
+    for i in range(n):
+        sc.add_prim(mod.PrimDef(PrimType.POINT,
+                                pos=np.array(examples.chain_point(i))))
+    blend = sc.add_op(mod.OpDef(OpType.BLEND, left=0, right=nb - 1,
+                                is_range=True))
+    ricci = sc.add_op(mod.OpDef(
+        OpType.RICCI_BLEND, left=nb, right=nb + nr - 1, is_range=True,
+        params=np.array(examples.CHAIN_RICCI_PARAMS)))
+    top = sc.add_op(mod.OpDef(OpType.UNION, left=blend, left_is_op=True,
+                              right=ricci, right_is_op=True))
+    for i in range(nb + nr, n):
+        top = sc.add_op(mod.OpDef(OpType.UNION, left=top, left_is_op=True,
+                                  right=i))
+    sc.root_idx, sc.root_is_op = top, True
     return sc
 
 
@@ -158,6 +183,7 @@ def test_fixture_scenes_are_valid_and_additive(make):
     (blend_twist, False, False),
     (dif_scene, True, False),
     (lambda mod: every_type(mod, OpType.UNION), True, True),
+    (union_chain_over_100_ops, True, True),
 ])
 def test_general_fixture_scenes(make, cull, monotone):
     """The scenes of the general kernel: valid, not additive, with the
@@ -169,7 +195,8 @@ def test_general_fixture_scenes(make, cull, monotone):
     assert (ps.can_cull, ps.monotone_field) == (cull, monotone)
 
 
-@pytest.mark.parametrize("name", ["brain_resection", "blend_twist"])
+@pytest.mark.parametrize("name", ["brain_resection", "blend_twist",
+                                  "union_chain_over_100_ops"])
 def test_port_examples_build_the_fixture_scenes(name):
     """The port's own functions (what chip_smoke.py drives) and the
     two-package ones here give the same packed scene, bit for bit."""
@@ -195,3 +222,5 @@ def test_port_examples_import_no_other_package():
     assert "fembrain_tpu." not in src and "import fembrain_tpu\n" not in src
     assert inspect.signature(examples.brain_resection).parameters == {}
     assert inspect.signature(examples.blend_twist).parameters == {}
+    assert inspect.signature(
+        examples.union_chain_over_100_ops).parameters == {}

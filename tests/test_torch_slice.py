@@ -2,7 +2,9 @@
 `coupled_step_grid_fast` against the same frames composed from the JAX
 package (grid-FEM step -> Wendland weights -> Pallas deformed trace in
 interpret mode) on a small additive scene; the package's import
-hygiene; and its default device."""
+hygiene (also of the simulation frame's modules, whose own whole-frame
+test is test_torch_frame.py); its default device; and that nothing in it
+falls back when a kernel, a build or a phase fails."""
 import inspect
 import os
 import subprocess
@@ -29,6 +31,7 @@ import fembrain_tpu_torch
 from fembrain_tpu_torch import convert
 from fembrain_tpu_torch.blob.scene import SceneDef
 from fembrain_tpu_torch.fem import grid_fem as pgfm
+from fembrain_tpu_torch.fem import tetmesh as ptet
 from fembrain_tpu_torch.render import deformed as pd
 from fembrain_tpu_torch.render.camera import Camera
 from fembrain_tpu_torch.render.deformed import coupled_step_grid_fast
@@ -124,6 +127,75 @@ def test_package_imports_no_jax_and_keeps_f32_matmuls():
     assert out.stdout.startswith("ok")
 
 
+def _sources():
+    files = sorted((REPO / "fembrain_tpu_torch").rglob("*.py"))
+    return files + [REPO / "chip_smoke.py"]
+
+
+def test_every_module_of_the_slice_is_there_and_imports_no_jax():
+    """The simulation frame's modules exist beside their JAX counterparts,
+    and no source file of the port (nor chip_smoke.py) has an import
+    statement of jax or of the JAX package."""
+    for rel in ("fem/corotational.py", "fem/deformable.py", "fem/tetmesh.py",
+                "fem/integrator.py", "graphics/materials.py",
+                "mesh/polygonize.py", "mesh/samples.py", "ops/field.py",
+                "render/deformed.py", "render/sphere_trace.py"):
+        assert (REPO / "fembrain_tpu_torch" / rel).is_file(), rel
+        assert (REPO / "fembrain_tpu" / rel).is_file(), rel
+    files = _sources()
+    assert len(files) > 25
+    for path in files:
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] == ["import"] or words[:1] == ["from"]:
+                mod = words[1]
+                assert mod != "jax" and not mod.startswith("jax."), path
+                assert mod != "fembrain_tpu" and not mod.startswith(
+                    "fembrain_tpu."), (path, line)
+
+
+def test_no_fallback_around_a_kernel_build_or_phase():
+    """No `is_available()` branch and no try/except in the port or in
+    chip_smoke.py: a failed kernel, build or phase raises. The two
+    exceptions are named: chip_smoke's exit without a card, and the INI
+    reader's number parsing."""
+    for path in _sources():
+        src = path.read_text()
+        rel = path.relative_to(REPO).as_posix()
+        n_avail = src.count("is_available")
+        n_try = sum(1 for line in src.splitlines()
+                    if line.strip() in ("try:",)
+                    or line.strip().startswith("except"))
+        if rel == "chip_smoke.py":
+            assert n_avail == 1 and n_try == 0, rel
+            assert "if not torch.cuda.is_available():" in src
+        elif rel == "fembrain_tpu_torch/utils/ini.py":
+            assert n_avail == 0 and n_try == 4, rel
+        else:
+            assert n_avail == 0 and n_try == 0, rel
+
+
+def test_chip_smoke_holds_every_ported_kernel():
+    """Every kernel the port counts launches of is listed by
+    chip_smoke.py with its source, the TPU kernel it replaces and its
+    thresholds against the plain version, and the sources exist."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    from fembrain_tpu_torch.render import tile_trace as tt
+
+    names = [k[0] for k in chip_smoke.KERNELS]
+    assert sorted(names) == sorted(tt.LAUNCHES) == sorted(
+        chip_smoke.THRESHOLDS)
+    for _, source, replaces in chip_smoke.KERNELS:
+        assert (REPO / source).is_file()
+        ref, line = replaces.split(":")
+        assert int(line) <= len((REPO / ref).read_text().splitlines())
+    src = (REPO / "chip_smoke.py").read_text()
+    for phase in ("kernel_phase", "main_path_phase", "training_phase",
+                  "simulation_frame_phase"):
+        assert f"def {phase}(" in src and f" {phase}(root" in src
+
+
 # Each public constructor with the function that resolves its `device`.
 _CONSTRUCTORS = [
     (SceneDef.pack, SceneDef.pack), (Camera.make, Camera.make),
@@ -131,9 +203,11 @@ _CONSTRUCTORS = [
     (pgfm.build_grid_fem, pgfm.build_grid_fem),
     (pgfm.grid_fem_from_tetmesh, pgfm.build_grid_fem),
     (pd.build_disp_interp, pd.build_disp_interp),
+    (ptet.build_fem_mesh, ptet.build_fem_mesh),
 ] + [(f, convert._build) for f in (
     convert.scene, convert.tet_mesh, convert.grid_fem, convert.disp_interp,
-    convert.fem_state)]
+    convert.fem_state, convert.fem_mesh_from_numpy,
+    convert.surface_mesh_from_numpy)]
 
 
 @pytest.mark.parametrize("ctor,resolver", _CONSTRUCTORS,
