@@ -70,9 +70,9 @@ class GridLevel:
     """One multigrid level: the linear (rest, R = I) elasticity operator
     on its own vertex grid, rediscretized at this level's cell size."""
 
-    cellw: torch.Tensor   # [CX*CY*CZ] f32 cell weights (1 = active)
+    cellw: torch.Tensor   # [CX*CY*CZ] cell weights (1 = active)
     free: torch.Tensor    # [X,Y,Z] bool — active node and not fixed
-    mass: torch.Tensor    # [X,Y,Z] f32 lumped mass
+    mass: torch.Tensor    # [X,Y,Z] lumped mass
     ke: torch.Tensor      # [6,12,12] shared element stiffness
     kdiag: torch.Tensor   # [3,3,X*Y*Z] assembled linear diag blocks of K
     # Coarsest level only: dense K [D,D] with fixed rows/cols zeroed and
@@ -86,10 +86,10 @@ class GridLevel:
 class GridFem:
     """Grid FEM mesh: fine level + coarser multigrid levels."""
 
-    cellw: torch.Tensor   # [CX*CY*CZ] f32 active-cell weights
+    cellw: torch.Tensor   # [CX*CY*CZ] active-cell weights
     free: torch.Tensor    # [X,Y,Z] bool
     active: torch.Tensor  # [X,Y,Z] bool (tet nodes)
-    mass: torch.Tensor    # [X,Y,Z] f32
+    mass: torch.Tensor    # [X,Y,Z]
     ke: torch.Tensor      # [6,12,12]
     inv_dm: torch.Tensor  # [6,3,3]
     x0: torch.Tensor      # [6,12] rest corner positions within a cell
@@ -104,7 +104,7 @@ class GridFem:
     cellsize: float = 0.0
 
     def rest_state(self) -> FemState:
-        z = torch.zeros((*self.dims, 3), dtype=torch.float32,
+        z = torch.zeros((*self.dims, 3), dtype=self.mass.dtype,
                         device=self.mass.device)
         return FemState(q=z, qvel=z, dv=z)
 
@@ -522,19 +522,22 @@ def build_grid_fem(
     nu: float = DEFAULT_NU,
     rho: float = DEFAULT_RHO,
     n_levels: int = 4,
+    dtype: torch.dtype = torch.float32,
     device: torch.device | str | None = None,
 ) -> GridFem:
     """Host-side constructor. cell_mask [CX,CY,CZ] bool (TetMesh.cell_mask),
-    fixed [X,Y,Z] bool grid-vertex anchors; tensors land on `device` (the
-    card when None)."""
+    fixed [X,Y,Z] bool grid-vertex anchors; float tensors are `dtype` and
+    land on `device` (the card when None)."""
     device = default_device() if device is None else device
     cell_mask = np.asarray(cell_mask, bool)
     fixed = np.asarray(fixed, bool)
     dims = tuple(d + 1 for d in cell_mask.shape)
     assert fixed.shape == dims, (fixed.shape, dims)
 
-    def f32(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+
+    def real(a):
+        return torch.as_tensor(np.asarray(a, np_dtype), device=device)
 
     def flag(a):
         return torch.as_tensor(np.asarray(a, bool), device=device)
@@ -558,50 +561,50 @@ def build_grid_fem(
         ))
 
     # Direct dense solve on the coarsest level, with its inverse for the
-    # default step coefficients precomputed here (float64, then f32).
+    # default step coefficients precomputed here (float64, then `dtype`).
     coarse = levels[-1]
     coarse_inv = k_dense = free_dense = None
     mc0 = 1.0 + DEFAULT_TIMESTEP * DEFAULT_DAMPING_MASS
     sc0 = (DEFAULT_TIMESTEP * DEFAULT_DAMPING_STIFFNESS
            + DEFAULT_TIMESTEP * DEFAULT_TIMESTEP)
     if 3 * int(np.prod(coarse["dims"])) <= _DENSE_COARSE_MAX_DOF:
-        # The f32 round trip keeps the assembly identical to assembling
-        # from the level's stored f32 stiffness.
+        # The round trip through `dtype` keeps the assembly identical to
+        # assembling from the level's stored stiffness.
         kd, fd = _assemble_dense(
-            coarse["cm"], np.float32(coarse["ke"]).astype(np.float64),
+            coarse["cm"], coarse["ke"].astype(np_dtype).astype(np.float64),
             coarse["free"],
         )
         k_dense, free_dense = kd, fd
         mass3 = np.tile(
-            np.float32(coarse["mass"]).astype(np.float64).reshape(-1), 3
+            coarse["mass"].astype(np_dtype).astype(np.float64).reshape(-1), 3
         )
         a = sc0 * kd + np.diag(mc0 * mass3 * fd + (1.0 - fd))
-        coarse_inv = f32(np.linalg.inv(a))
+        coarse_inv = real(np.linalg.inv(a))
 
     grid_levels = []
     for i, lv in enumerate(levels):
         last = i == len(levels) - 1
         grid_levels.append(GridLevel(
-            cellw=f32(lv["cm"].reshape(-1)),
+            cellw=real(lv["cm"].reshape(-1)),
             free=flag(lv["free"]),
-            mass=f32(lv["mass"]),
-            ke=f32(lv["ke"]),
-            kdiag=f32(lv["kdiag"]),
-            k_dense=f32(k_dense) if last and k_dense is not None else None,
-            free_dense=(f32(free_dense) if last and free_dense is not None
+            mass=real(lv["mass"]),
+            ke=real(lv["ke"]),
+            kdiag=real(lv["kdiag"]),
+            k_dense=real(k_dense) if last and k_dense is not None else None,
+            free_dense=(real(free_dense) if last and free_dense is not None
                         else None),
             dims=lv["dims"],
         ))
 
     return GridFem(
-        cellw=f32(cell_mask.reshape(-1)),
+        cellw=real(cell_mask.reshape(-1)),
         free=flag(active & ~fixed),
         active=flag(active),
-        mass=f32(_mass_grid(cell_mask, grid.cellsize, rho)),
-        ke=f32(ke),
-        inv_dm=f32(inv_dm),
-        x0=f32(x0.reshape(6, 12)),
-        kdiag=f32(_kdiag_grid(cell_mask, ke)),
+        mass=real(_mass_grid(cell_mask, grid.cellsize, rho)),
+        ke=real(ke),
+        inv_dm=real(inv_dm),
+        x0=real(x0.reshape(6, 12)),
+        kdiag=real(_kdiag_grid(cell_mask, ke)),
         levels=tuple(grid_levels),
         coarse_inv=coarse_inv,
         coarse_coefs=(float(mc0), float(sc0)),
@@ -641,7 +644,7 @@ def grid_fem_from_tetmesh(
             fixed_nodes = np.flatnonzero(fixed_nodes[: len(n2g)])
         fixed[n2g[fixed_nodes]] = True
     return build_grid_fem(grid, cell_mask, fixed.reshape(dims), E, nu, rho,
-                          n_levels, device)
+                          n_levels, device=device)
 
 
 # ------------------------------------------------------------- timestep
@@ -656,16 +659,19 @@ def timestep(
     cg_tol: float = CG_TOL,
     cg_max_iters: int = CG_MAX_ITERS,
     differentiable: bool = False,
+    precond: str = "mg",
     solve_stats: dict | None = None,
 ) -> tuple[FemState, int]:
-    """One implicit Newmark step on the grid with the multigrid-
-    preconditioned CG solve; returns (new_state, cg_iterations). f_ext is
-    [X,Y,Z,3]. The forward default warm-starts from state.dv.
+    """One implicit Newmark step on the grid; returns (new_state,
+    cg_iterations). f_ext is [X,Y,Z,3]. precond="mg" (with levels)
+    preconditions CG by the multigrid V-cycle; any other value, or a
+    GridFem without levels, by block-Jacobi on the 3x3 diagonal blocks of
+    the linear stiffness. The forward default warm-starts from state.dv.
     differentiable=True solves cold through `symmetric_solve`, so
     gradients reach the element stiffness gf.ke (Young's modulus) and the
-    state through one adjoint CG solve; `solve_stats` then receives the
-    forward and adjoint iteration counts. The multigrid levels keep their
-    own stiffness: the preconditioner is not differentiated."""
+    state through one adjoint CG solve; the returned count is then -1, as
+    in the reference, and `solve_stats` receives the forward and adjoint
+    iteration counts. The preconditioner is not differentiated."""
     free = gf.free[..., None]
 
     R = kinematics(gf, state.q)
@@ -690,25 +696,35 @@ def timestep(
         out = mass_coef * m * vf + stiff_coef * stiffness_apply_rot(g, rot, vf)
         return torch.where(free, out, v)
 
-    pre_inv = None
-    if (
-        gf.coarse_inv is not None
-        and abs(mass_coef - gf.coarse_coefs[0]) < 1e-12
-        and abs(stiff_coef - gf.coarse_coefs[1]) < 1e-12
-    ):
-        pre_inv = gf.coarse_inv
-    setup = mg_setup(gf.levels, mass_coef, stiff_coef, pre_inv)
+    if precond == "mg" and gf.levels:
+        pre_inv = None
+        if (
+            gf.coarse_inv is not None
+            and abs(mass_coef - gf.coarse_coefs[0]) < 1e-12
+            and abs(stiff_coef - gf.coarse_coefs[1]) < 1e-12
+        ):
+            pre_inv = gf.coarse_inv
+        setup = mg_setup(gf.levels, mass_coef, stiff_coef, pre_inv)
 
-    def prec(r):
-        return vcycle(gf.levels, mass_coef, stiff_coef, r, setup)
+        def prec(r):
+            return vcycle(gf.levels, mass_coef, stiff_coef, r, setup)
+    else:
+        mflat = gf.mass.reshape(-1)
+        eye = torch.eye(3, dtype=residual.dtype,
+                        device=residual.device)[..., None]
+        blocks = (mass_coef * mflat) * eye + stiff_coef * gf.kdiag
+        freef = gf.free.reshape(-1)[None, None]
+        inv_blocks = _inv3_cm(torch.where(freef, blocks, eye))
+
+        def prec(r):
+            return _un_cm(_block_apply(inv_blocks, _cm(r)))
 
     if differentiable:
-        stats = {} if solve_stats is None else solve_stats
         dv = symmetric_solve(
             operator, residual, (gf.ke, R),
-            lambda mv, b: pcg(mv, b, prec, cg_tol, cg_max_iters), stats,
+            lambda mv, b: pcg(mv, b, prec, cg_tol, cg_max_iters), solve_stats,
         )
-        iters = stats["forward_iters"]
+        iters = -1
     else:
         x0 = None if state.dv is None else torch.where(free, state.dv, 0.0)
         dv, iters = pcg(lambda v: operator(v, gf.ke, R), residual, prec,

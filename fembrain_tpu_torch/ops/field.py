@@ -12,6 +12,9 @@ Scenes with more than UNROLL_LIMIT scheduled ops fold through the
 register-allocated plan (`_fold_scan`), which keeps at most
 `scene.fold_registers` op values alive however many operators the
 instance-flattened scene has.
+
+The reference's `field_jit` is `jax.jit` of `field` and has no
+counterpart: PyTorch runs `field` eagerly.
 """
 from __future__ import annotations
 
@@ -581,3 +584,32 @@ def normal(scene: Scene, points: torch.Tensor) -> torch.Tensor:
     g = gradient(scene, points)
     n2 = torch.sum(g * g, -1, keepdim=True)
     return -g * torch.rsqrt(torch.clamp(n2, min=1e-24))
+
+
+def field_image(scene: Scene, axis: int, coord: float,
+                width: int = 128, height: int = 128) -> torch.Tensor:
+    """2-D field slice for debugging (reference ComputeFieldImage,
+    Polygonizer.cl:1288-1325): sample the plane `axis` = coord across the
+    scene bbox -> [height, width] field values."""
+    lo, hi = scene.bbox_lo, scene.bbox_hi
+    a, b = (k for k in range(3) if k != axis)
+    us = torch.linspace(float(lo[a]), float(hi[a]), width, device=lo.device)
+    vs = torch.linspace(float(lo[b]), float(hi[b]), height, device=lo.device)
+    vv, uu = torch.meshgrid(vs, us, indexing="ij")
+    pts = torch.zeros((height, width, 3), device=lo.device)
+    pts[..., a] = uu
+    pts[..., b] = vv
+    pts[..., axis] = coord
+    return field(scene, pts.reshape(-1, 3)).reshape(height, width)
+
+
+def off_surface_points_and_fields(scene: Scene, points: torch.Tensor,
+                                  offset: float = 0.1):
+    """+/- normal offset samples with their field values (reference
+    ComputeOffSurfacePointsAndFields, Polygonizer.cl:1329-1350), the RBF
+    training data, with autograd normals: ([2N, 3] points, [2N] fields)."""
+    n = normal(scene, points)
+    p_out = points + offset * n
+    p_in = points - offset * n
+    return (torch.cat([p_out, p_in], 0),
+            torch.cat([field(scene, p_out), field(scene, p_in)], 0))

@@ -51,6 +51,9 @@ from .tile_trace import (
 # Pull-back fixed-point iterations of the dense tracer and of K4.
 FIXED_POINT_ITERS = 2
 
+# The reference's fixed center count (adaptive_centers picks the count).
+DISP_CENTERS = 128
+
 # Wendland support radius as a multiple of the center fill distance.
 WENDLAND_SIGMA_FILL = 3.0
 # max_t |d/dt (1-t)^4 (4t+1)| = 20 t (1-t)^3 at t = 1/4.
@@ -332,6 +335,55 @@ def build_disp_interp(nodes, n_centers: int | None = None, fixed=None,
     )
 
 
+def refine_disp_interp(interp: DispInterp, nodes, u, n_extra: int = 64,
+                       batch: int = 8, fixed=None,
+                       device: torch.device | str | None = None
+                       ) -> DispInterp:
+    """Error-driven center refinement: given a representative displacement
+    sample `u` [N, 3] at `nodes` (the settled FEM sag, a post-cut state),
+    fit, rank the per-node residual |u - u_interp| and add the worst-fit
+    nodes as centers, `batch` at a time and at least half the median
+    nearest-center spacing apart, until `n_extra` were added. The support
+    sigma stays the base interpolant's. Host float64 numpy, then
+    `build_disp_interp` with the added nodes as `extra_centers` (tensors
+    on `device`, the card when None)."""
+    nodes = np.asarray(nodes, np.float64)
+    u = np.asarray(u, np.float64)
+    idx = interp.center_nodes.cpu().numpy().tolist()
+    sigma = float(interp.sigma) if interp.kind != "biharmonic" else None
+    for _ in range(-(-n_extra // batch)):
+        c = nodes[idx]
+        a_inv = _factor_interp(c, interp.kind,
+                               sigma if sigma is not None else 1.0)
+        w = a_inv @ np.concatenate([u[idx], np.zeros((4, 3))], 0)
+        d = np.linalg.norm(nodes[:, None] - c[None], axis=-1)
+        if interp.kind == "biharmonic":
+            phi = d
+        else:
+            t = np.minimum(d / sigma, 1.0)
+            phi = (1.0 - t) ** 4 * (4.0 * t + 1.0)
+        uh = phi @ w[: len(idx)] + w[len(idx)] + nodes @ w[len(idx) + 1:]
+        resid = np.linalg.norm(uh - u, axis=-1)
+        resid[idx] = 0.0
+        min_sep = 0.5 * float(np.median(np.sort(d, axis=1)[:, 0] + 1e-9))
+        added = []
+        for j in np.argsort(-resid):
+            if len(added) >= batch or resid[j] <= 0:
+                break
+            if all(np.linalg.norm(nodes[j] - nodes[k]) > min_sep
+                   for k in added):
+                added.append(int(j))
+        if not added:
+            break
+        idx.extend(added)
+        if len(idx) >= interp.center_nodes.shape[0] + n_extra:
+            break
+    base_m = interp.center_nodes.shape[0]
+    return build_disp_interp(nodes, n_centers=base_m, fixed=fixed,
+                             kernel=interp.kind, sigma=sigma,
+                             extra_centers=idx[base_m:], device=device)
+
+
 def disp_weights_centers(interp: DispInterp, u_c: torch.Tensor):
     """RBF weights from displacements at the centers: [M+4, 3], linear in
     u_c, so gradients flow through."""
@@ -459,6 +511,13 @@ def wendland_spec(interp: DispInterp, w: torch.Tensor,
         bfr=bfr.detach(), max_disp=max_disp.float().detach(),
         sigma=float(interp.sigma), k_refresh=int(k_refresh),
     )
+
+
+# The reference's name for the Wendland kernel's spec. `certified` and
+# `k_refresh` carry over by keyword; its `max_disp` and `fp_iters` have
+# no counterpart (K2 takes its bracket inflation from the weights and
+# refreshes one pull-back iteration an eval).
+wendland_pallas_spec = wendland_spec
 
 
 def pull_back_rbf(interp: DispInterp, w: torch.Tensor, y: torch.Tensor,
@@ -625,15 +684,14 @@ def coupled_step_fast(scene: Scene, fem_mesh, interp: DispInterp,
     implicit-differentiation correction, so a loss on t reaches E_scale
     (which scales the element stiffness, Young's modulus) and the scene.
     max_disp inflates the biharmonic trace's brackets and must bound the
-    frame's |u| (see coupling_telemetry). Returns (t, hit, new_state,
-    cg_iterations); the count is -1 on the differentiable solve, whose
-    counts go to `solve_stats`."""
+    frame's |u| (see coupling_telemetry). Returns (t, hit, new_state), as
+    the reference does; the CG iteration counts go to `solve_stats`."""
     from ..fem import integrator as integ
 
     mesh2 = fem_mesh if E_scale is None else dataclasses.replace(
         fem_mesh, ke=fem_mesh.ke * E_scale)
     kw = {} if cg_tol is None else {"cg_tol": cg_tol}
-    new_state, iters = integ.timestep(mesh2, state, f_ext, h=h,
+    new_state, _ = integ.timestep(mesh2, state, f_ext, h=h,
                                       differentiable=differentiable,
                                       solve_stats=solve_stats, **kw)
     w = disp_weights(interp, new_state.q)
@@ -642,7 +700,7 @@ def coupled_step_fast(scene: Scene, fem_mesh, interp: DispInterp,
         image_hw=image_hw, fp_iters=fp_iters, need_grads=differentiable,
         bound_pts=bound_pts, tile=tile, k_refresh=k_refresh,
     )
-    return t, hit, new_state, iters
+    return t, hit, new_state
 
 
 def coupled_step(scene: Scene, fem_mesh, grid: GridSpec,
@@ -691,13 +749,13 @@ def coupled_step_grid_fast(scene: Scene, gf, interp: DispInterp,
     solve runs cold and adjoint-differentiable, and the trace applies its
     implicit-differentiation correction, so a loss on t reaches E_scale.
     `solve_stats`, if given, receives the CG iteration counts. Returns
-    (t, hit, new_state, cg_iterations)."""
+    (t, hit, new_state), as the reference does."""
     from ..fem import grid_fem as gfm
 
     gf2 = gf if E_scale is None else dataclasses.replace(gf,
                                                          ke=gf.ke * E_scale)
     kw = {} if cg_tol is None else {"cg_tol": cg_tol}
-    new_state, iters = gfm.timestep(gf2, state, f_ext, h=h,
+    new_state, _ = gfm.timestep(gf2, state, f_ext, h=h,
                                     differentiable=differentiable,
                                     solve_stats=solve_stats, **kw)
     u_c = new_state.q.reshape(-1, 3)[center_grid_idx]
@@ -707,7 +765,7 @@ def coupled_step_grid_fast(scene: Scene, gf, interp: DispInterp,
         image_hw=image_hw, fp_iters=fp_iters, need_grads=differentiable,
         bound_pts=bound_pts, tile=tile, k_refresh=k_refresh,
     )
-    return t, hit, new_state, iters
+    return t, hit, new_state
 
 
 def max_disp_bound(interp: DispInterp, w: torch.Tensor,

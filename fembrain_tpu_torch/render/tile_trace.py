@@ -1335,6 +1335,17 @@ def _block_layout(height: int, width: int, tile: int):
     return to_blocks, from_blocks, (ph, pw), hb * wb * bh * bw
 
 
+def block_permutation(height: int, width: int, bh: int = 32, bw: int = 64):
+    """Row-major -> block-major pixel permutation: [Hpad * Wpad] indices
+    into the row-major ray array, bh x bw pixel blocks in block-row
+    order, -1 for padding outside the image (host numpy)."""
+    hb, wb = -(-height // bh), -(-width // bw)
+    yy, xx = np.meshgrid(np.arange(hb * bh), np.arange(wb * bw),
+                         indexing="ij")
+    flat = np.where((yy < height) & (xx < width), yy * width + xx, -1)
+    return flat.reshape(hb, bh, wb, bw).transpose(0, 2, 1, 3).reshape(-1)
+
+
 def image_rays_to_blocks(ro, rd, height, width, tile=TILE):
     """Permute row-major image rays into coherent pixel blocks of `tile`
     rays; padded rays start far away pointing +x and miss everything.
@@ -1360,3 +1371,10 @@ def trace_tiles_image(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
                                                    tile)
     t_b, hit_b = trace_tiles(scene, ro_b, rd_b, params, tile, disp)
     return from_blocks(t_b), from_blocks(hit_b)
+
+
+# The reference's names (fembrain_tpu/render/pallas_trace.py). Arguments
+# carry over by keyword; `interpret` and `tile_cond` have no counterpart:
+# the tensors' device chooses between the kernel and its plain version.
+trace_pallas = trace_tiles
+trace_pallas_image = trace_tiles_image

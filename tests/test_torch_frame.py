@@ -154,11 +154,11 @@ def test_coupled_step_fast_matches_jax(frame, settled, tracer):
     for _ in range(2):
         t_j, h_j, jst = jframe(jst)
         stats = {}
-        t_p, h_p, pst, p_it = pd.coupled_step_fast(
+        t_p, h_p, pst = pd.coupled_step_fast(
             ps, pm, pinterp, pst, torch.tensor(f), torch.tensor(ro),
             torch.tensor(rd), image_hw=(H_IMG, W_IMG), k_refresh=K_REFRESH,
             solve_stats=stats)
-        assert p_it == stats["forward_iters"] > 20
+        assert stats["forward_iters"] > 20
         assert_fem_state_close(np.asarray(jst.q), np.asarray(jst.qvel),
                                pst.q.numpy(), pst.qvel.numpy())
         _k2_agree(np.asarray(h_j), np.asarray(t_j), h_p.numpy(), t_p.numpy(),
@@ -184,17 +184,17 @@ def test_coupled_step_fast_gradient_to_young_modulus(frame):
 
     e = torch.tensor(1.0, requires_grad=True)
     stats = {}
-    t, hit0, new, it = pd.coupled_step_fast(
+    t, hit0, new = pd.coupled_step_fast(
         ps, pm, interp, st0, f, ro, rd, E_scale=e, differentiable=True,
         solve_stats=stats)
-    assert it == -1 and stats["forward_iters"] > 20
+    assert stats["forward_iters"] > 20
     torch.sum(torch.where(hit0, t, 0.0)).backward()
     assert stats["adjoint_iters"] > 20
     g = float(e.grad)
 
     def loss(v):
         with torch.no_grad():
-            t, _, _, _ = run(torch.tensor(v))
+            t, _, _ = run(torch.tensor(v))
         return float(torch.sum(torch.where(hit0, t, 0.0)))
 
     eps = 0.05

@@ -3,8 +3,11 @@
 package (grid-FEM step -> Wendland weights -> Pallas deformed trace in
 interpret mode) on a small additive scene; the package's import
 hygiene (also of the simulation frame's modules, whose own whole-frame
-test is test_torch_frame.py); its default device; and that nothing in it
-falls back when a kernel, a build or a phase fails."""
+test is test_torch_frame.py); its default device; that nothing in it
+falls back when a kernel, a build or a phase fails; and, for the app
+slice, the reference's top-level names in every module pair, its names
+for renamed functions and the coupled steps' return shape."""
+import ast
 import inspect
 import os
 import subprocess
@@ -28,11 +31,14 @@ from fembrain_tpu.render.camera import Camera as JaxCamera
 from fembrain_tpu.render.camera import generate_rays as jax_rays
 
 import fembrain_tpu_torch
+from fembrain_tpu_torch import app as papp
 from fembrain_tpu_torch import convert
 from fembrain_tpu_torch.blob.scene import SceneDef
 from fembrain_tpu_torch.fem import grid_fem as pgfm
 from fembrain_tpu_torch.fem import tetmesh as ptet
+from fembrain_tpu_torch.ops import rbf as prbf
 from fembrain_tpu_torch.render import deformed as pd
+from fembrain_tpu_torch.render import tile_trace as ptt
 from fembrain_tpu_torch.render.camera import Camera
 from fembrain_tpu_torch.render.deformed import coupled_step_grid_fast
 
@@ -92,10 +98,12 @@ def test_coupled_frames_match_composed_jax_steps():
         t_j, h_j = jax_trace(
             jd.disp_weights_centers(interp, jst.q.reshape(-1, 3)[cgi]))
         # Port: one call.
-        t_p, h_p, pst, p_it = coupled_step_grid_fast(
+        stats = {}
+        t_p, h_p, pst = coupled_step_grid_fast(
             ps, pgf, pinterp, p_cgi, pst, p_fext, ro_t, rd_t,
-            image_hw=(h_img, w_img), k_refresh=K_REFRESH,
+            image_hw=(h_img, w_img), k_refresh=K_REFRESH, solve_stats=stats,
         )
+        p_it = stats["forward_iters"]
         assert abs(int(j_it) - p_it) <= 1, (frame, int(j_it), p_it)
         assert_fem_state_close(np.asarray(jst.q), np.asarray(jst.qvel),
                                pst.q.numpy(), pst.qvel.numpy())
@@ -192,8 +200,24 @@ def test_chip_smoke_holds_every_ported_kernel():
         assert int(line) <= len((REPO / ref).read_text().splitlines())
     src = (REPO / "chip_smoke.py").read_text()
     for phase in ("kernel_phase", "main_path_phase", "training_phase",
-                  "simulation_frame_phase"):
+                  "simulation_frame_phase", "app_phase"):
         assert f"def {phase}(" in src and f" {phase}(root" in src
+
+
+def test_chip_smoke_alone_names_what_it_needs(tmp_path):
+    """Run alone in an empty directory, chip_smoke.py exits non-zero
+    before it imports anything, naming the files of the checkout it
+    needs (the package and the model data), and prints no result."""
+    (tmp_path / "chip_smoke.py").write_text(
+        (REPO / "chip_smoke.py").read_text())
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120,
+                         env={k: v for k, v in os.environ.items()
+                              if k != "PYTHONPATH"})
+    assert out.returncode != 0 and out.stdout == ""
+    for need in ("fembrain_tpu_torch/__init__.py", "data/models/brain.sim",
+                 "data/models/blobtree/brain.blob"):
+        assert need in out.stderr, out.stderr
 
 
 # Each public constructor with the function that resolves its `device`.
@@ -203,7 +227,10 @@ _CONSTRUCTORS = [
     (pgfm.build_grid_fem, pgfm.build_grid_fem),
     (pgfm.grid_fem_from_tetmesh, pgfm.build_grid_fem),
     (pd.build_disp_interp, pd.build_disp_interp),
+    (pd.refine_disp_interp, pd.build_disp_interp),
     (ptet.build_fem_mesh, ptet.build_fem_mesh),
+    (prbf.FastRBF.__init__, prbf.FastRBF.__init__),
+    (papp.SimulationApp.__init__, papp.SimulationApp.__init__),
 ] + [(f, convert._build) for f in (
     convert.scene, convert.tet_mesh, convert.grid_fem, convert.disp_interp,
     convert.fem_state, convert.fem_mesh_from_numpy,
@@ -221,3 +248,70 @@ def test_constructors_default_to_the_card(ctor, resolver):
     if resolver is not ctor:
         assert resolver.__name__ in inspect.getsource(ctor)
     assert fembrain_tpu_torch.default_device() == torch.device("cuda")
+
+
+# The app slice's file pairs, and the reference's top-level names each
+# leaves out on purpose: `field_jit` is jax.jit of `field`;
+# `enable_compilation_cache` is XLA's cache; `_HI` is JAX's matmul
+# precision (TF32 stays off package-wide instead).
+_APP_SLICE = ("app.py", "blob/writer.py", "graphics/scenegraph.py",
+              "mesh/samples.py", "ops/field.py", "ops/field_ref.py",
+              "ops/rbf.py", "render/deformed.py", "render/viewer.py",
+              "utils/checkpoint.py", "utils/config.py", "utils/logging.py",
+              "utils/metrics.py", "utils/plots.py", "utils/profiler.py")
+_LEFT_OUT = {"ops/field.py": {"field_jit"},
+             "utils/checkpoint.py": {"enable_compilation_cache"},
+             "render/deformed.py": {"_HI"}}
+
+
+def _top_level_names(path):
+    out = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, ast.Assign):
+            out.update(t.id for t in node.targets if isinstance(t, ast.Name))
+    return out
+
+
+@pytest.mark.parametrize("rel", _APP_SLICE)
+def test_app_slice_module_has_the_reference_names(rel):
+    """Each module of the app slice has every top-level name of its JAX
+    counterpart, but those left out on purpose; it imports neither jax
+    nor the JAX package (checked on every source by the test above), and
+    has no fallback (the test below)."""
+    ref = _top_level_names(REPO / "fembrain_tpu" / rel)
+    got = _top_level_names(REPO / "fembrain_tpu_torch" / rel)
+    assert ref - got == _LEFT_OUT.get(rel, set()), rel
+
+
+def test_reference_names_and_return_shapes():
+    """The reference's names resolve in the port (README, "Names"), and
+    both coupled steps return (t, hit, new_state) as the reference's do,
+    with the CG counts in `solve_stats`."""
+    assert pd.wendland_pallas_spec is pd.wendland_spec
+    assert ptt.trace_pallas is ptt.trace_tiles
+    assert ptt.trace_pallas_image is ptt.trace_tiles_image
+    for fn in (pd.coupled_step_fast, pd.coupled_step_grid_fast):
+        src = inspect.getsource(fn)
+        assert "    return t, hit, new_state\n" in src, fn.__name__
+        assert "solve_stats" in inspect.signature(fn).parameters
+    sig = inspect.signature(pgfm.timestep).parameters
+    assert sig["precond"].default == "mg"
+    assert inspect.signature(pgfm.build_grid_fem).parameters[
+        "dtype"].default == torch.float32
+    names = (REPO / "README.md").read_text().split("### Names")[1]
+    for ref, port in (("deformed.wendland_pallas_spec", "wendland_spec"),
+                      ("pallas_trace.trace_pallas_image",
+                       "tile_trace.trace_tiles_image"),
+                      ("pallas_trace._image_rays_to_blocks",
+                       "tile_trace.image_rays_to_blocks")):
+        assert ref in names and port in names, ref
+
+
+def test_app_main_runs_on_the_card_by_default():
+    """`main`'s --device defaults to None, which SimulationApp resolves to
+    the card; the app's modules need no card to import."""
+    src = inspect.getsource(papp.main)
+    assert 'ap.add_argument("--device", default=None' in src
+    assert "device=args.device" in src

@@ -56,7 +56,7 @@ def test_differentiable_timestep_matches_forward(setup):
         dif, it = gfm.timestep(pgf, dif, f, differentiable=True,
                                solve_stats=stats)
         np.testing.assert_allclose(dif.q.numpy(), fwd.q.numpy(), atol=5e-5)
-        assert it == stats["forward_iters"] > 0
+        assert it == -1 and stats["forward_iters"] > 0
     assert float(fwd.q[..., 1].min()) < -1e-3
 
 
@@ -95,7 +95,7 @@ def test_slice_E_gradient_matches_jax_and_finite_differences(setup):
             E_scale=es, differentiable=differentiable)
 
     es = torch.tensor(1.0, requires_grad=True)
-    t, hit0, _, _ = frame(es)
+    t, hit0, _ = frame(es)
     torch.sum(torch.where(hit0, t, 0.0)).backward()
     g = float(es.grad)
     assert np.isfinite(g) and abs(g) > 1e-3
@@ -103,7 +103,7 @@ def test_slice_E_gradient_matches_jax_and_finite_differences(setup):
 
     def loss(e):
         with torch.no_grad():
-            t, _, _, _ = frame(torch.tensor(e))
+            t, _, _ = frame(torch.tensor(e))
         return float(torch.sum(torch.where(hit0, t, 0.0)))
 
     l0 = loss(1.0)
