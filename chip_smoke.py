@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's coupled render+deform frame, its training
-path and its simulation frame once on one CUDA card, through its
-hand-written kernels.
+path, its simulation frame, its app and its surgical interaction once on
+one CUDA card, through its hand-written kernels.
 
     python3 chip_smoke.py
 
@@ -60,7 +60,23 @@ Phases, each raising on failure:
      (a copy of brain.sim with GRAVITY=1): 4 frames with checkpoints,
      PNGs and metrics, against 2 frames and 2 more resumed from their
      checkpoint. The app launches none of the tile kernels.
-Phases 4 to 6 also count the frames and steps they drive, and each
+  8. surgical interaction on brain at cellsize 0.14: build the VolMesh
+     (`CuttableMesh`, with its invariant suite), sweep a scalpel blade
+     through the whole tissue on a mid-cell plane and cut it (the edge x
+     swept-quad classification on the card, timed by CUDA events and held
+     to the CPU's), check the invariants and that the tissue parted, write
+     and read the cut mesh as .veg; rebuild the FEM (anchors per part from
+     the host core), step it under gravity and push one part with the
+     probe through the gizmo (ring forces from the host core); render 3
+     frames of the cut tissue through `coupled_step_fast` (K2), K2 held to
+     its plain version; drop a 6-DOF box off-centre onto the other part for
+     20 frames, then 5 frames in 3 DOF; blend a POINT onto brain's root in
+     a `SketchMachine`, pick it, pack and trace at 1920x1080 (K1 while the
+     scene stays additive, K3 otherwise; held to the plain version), undo
+     and trace again (the rest hit count), save and read back the action
+     script; run the mass-spring dumbbell and 65,536 particles 600 steps
+     on the card against the CPU.
+Phases 4 to 6 and 8 also count the frames and steps they drive, and each
 kernel's launches per step come from that, path by path: launches over
 steps, held to 1. Then one JSON line with the kernels (`launches` is the
 sum over the counted paths, `launches_by_path` the parts), the card line,
@@ -99,6 +115,17 @@ SIM_GRAVITY_STEPS, SIM_PUSH_STEPS, SIM_FRAMES = 5, 5, 5
 SIM_IMAGE = (400, 300)     # the app's default frame, marched densely
 SIM_DEEP_RAYS = (64, 48)   # the scene of more than 96 ops
 APP_STEPS = 5              # the app's haptic steps
+# The interaction path: the scalpel's steps across the tissue and the
+# classification's tolerance on t against the CPU; Deformable steps under
+# gravity and probe pushes (brain.sim's FORCECOEFF); coupled frames of the
+# cut tissue; the rigid box; the mass-spring and particle runs.
+CUT_STEPS, CUT_T_TOL = 7, 1e-6
+INTERACT_STEPS, INTERACT_FRAMES = 5, 3
+PROBE_HALF, PROBE_COEFF, PROBE_DRAG = (0.25, 0.25, 0.25), 5000.0, 0.05
+BOX_HALF, BOX_MASS, BOX_DT, BOX_TISSUE_GRAVITY = (0.3, 0.2, 0.25), 20.0, \
+    0.01, -9.8
+BOX_DROP, BOX_FRAMES_6DOF, BOX_FRAMES_3DOF = 0.1, 20, 5
+AUX_STEPS, N_PARTICLES, AUX_RTOL = 600, 65536, 1e-5
 # Kernel against plain version: (hit agreement, max |dt|, median |dt|).
 THRESHOLDS = {
     "trace_additive_rest": (0.999, 1e-4, None),
@@ -1164,6 +1191,420 @@ def app_phase(root, device, tag, log):
     log(f"app phase total {time.perf_counter() - t_phase:.1f} s")
 
 
+class _ProbeListener:
+    """Gizmo listener wiring the probe to the deformable: each drag moves
+    the probe, turns its contacts into ring forces (the host core) and
+    takes one FEM step (the reference's AvatarProbe::onTranslate role)."""
+
+    def __init__(self, probe, body, rest):
+        self.probe, self.body, self.rest = probe, body, rest
+        self.rows = []
+
+    def on_translate(self, delta, pos):
+        positions = self.rest + self.body.state.q.cpu().numpy()
+        idx, forces = self.probe.move_to(pos, positions)
+        f = self.body.haptic_forces(idx, forces) if len(idx) else None
+        ms, _ = sync_ms(lambda: self.body.timestep(f))
+        self.rows.append((ms, self.body.stats()["cg_iters"], len(idx)))
+
+    def on_rotate(self, quat):
+        pass
+
+    def on_scale(self, scale):
+        pass
+
+
+def uncounted(fn):
+    """fn() with the kernels' launch counters put back afterwards: the
+    launches that hold a kernel against its plain version are not the
+    path's."""
+    from fembrain_tpu_torch.render import tile_trace as tt
+
+    before = dict(tt.LAUNCHES)
+    out = fn()
+    tt.LAUNCHES.update(before)
+    return out
+
+
+def interaction_phase(root, device, params, tag, log):
+    """Phase 8: surgical interaction on brain at cellsize 0.14, counted;
+    returns (launches, steps driven per kernel)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fembrain_tpu_torch import femcore
+    from fembrain_tpu_torch.blob.reader import load_blob
+    from fembrain_tpu_torch.blob.sketch import (
+        SketchAddOp, SketchAddPrim, SketchMachine,
+    )
+    from fembrain_tpu_torch.blob.types import OpType, PrimType
+    from fembrain_tpu_torch.fem import cutting, rigid
+    from fembrain_tpu_torch.fem import integrator as integ
+    from fembrain_tpu_torch.fem.avatars import AvatarProbe, AvatarScalpel
+    from fembrain_tpu_torch.fem.deformable import Deformable
+    from fembrain_tpu_torch.fem.integrator import FemState
+    from fembrain_tpu_torch.fem.mass_spring import (
+        make_dumbbell, step_mass_spring,
+    )
+    from fembrain_tpu_torch.fem.tetmesh import build_fem_mesh
+    from fembrain_tpu_torch.graphics.gizmo import GizmoManager, GizmoType
+    from fembrain_tpu_torch.mesh.io import read_veg, write_veg
+    from fembrain_tpu_torch.mesh.polygonize import (
+        extract_tet_mesh, grid_for_scene,
+    )
+    from fembrain_tpu_torch.mesh.quality import tet_quality
+    from fembrain_tpu_torch.mesh.samples import bottom_nodes_per_component
+    from fembrain_tpu_torch.ops.particles import (
+        init_particles, step_particles,
+    )
+    from fembrain_tpu_torch.render import tile_trace as tt
+    from fembrain_tpu_torch.render.deformed import (
+        build_disp_interp, coupled_step_fast, disp_weights,
+        trace_deformed_rbf_fast, wendland_spec,
+    )
+    from fembrain_tpu_torch.utils.ini import SettingsScript
+    from fembrain_tpu_torch.utils.profiler import the_profiler
+
+    tt.reset_launch_counts()
+    steps = {"trace_additive_rest": 0, "trace_additive_wendland": 0}
+    t_phase = time.perf_counter()
+    host = {}
+
+    # 8.1 the cut: VolMesh, a scalpel sweep through the whole tissue on a
+    # mid-cell plane, the classification on the card held to the CPU.
+    t0 = time.perf_counter()
+    scene = load_scene(root, device)
+    grid = grid_for_scene(scene, cellsize=CELLSIZE)
+    tm = extract_tet_mesh(scene, grid, ncap=grid.n_vertices,
+                          tetcap=grid.n_cells * 6)
+    nodes = tm.nodes[: tm.n_nodes].cpu().numpy().astype(np.float64)
+    tets = tm.tets[: tm.n_tets].cpu().numpy()
+    host["tet mesh"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tissue = cutting.CuttableMesh(nodes, tets, device=device)
+    host["VolMesh + invariants"] = time.perf_counter() - t0
+    mesh = tissue.mesh
+    n_parts_before = femcore.components(tets, len(nodes))[0]
+    xmid = 0.5 * (nodes[:, 0].min() + nodes[:, 0].max())
+    x0 = grid.lo[0] + (round((xmid - grid.lo[0]) / grid.cellsize) + 0.5) * (
+        grid.cellsize)
+    lo, hi = nodes.min(0) - 0.5, nodes.max(0) + 0.5
+    scalpel = AvatarScalpel(blade_a=np.array([x0, hi[1], 0.0]),
+                            blade_b=np.array([x0, lo[1], 0.0]))
+    scalpel.grip()
+    for z in np.linspace(lo[2] - 0.13, hi[2] + 0.11, CUT_STEPS + 1):
+        scalpel.move_to([0.0, 0.0, z])
+    quads = np.stack(scalpel.sweep_quads)
+    p0 = np.stack([mesh.nodes[e.from_].pos for e in mesh.edges])
+    p1 = np.stack([mesh.nodes[e.to].pos for e in mesh.edges])
+    dev_in = [torch.as_tensor(a, dtype=torch.float32, device=device)
+              for a in (p0, p1, quads)]
+    classify_ms = event_ms(lambda: cutting.edge_quad_hits(*dev_in), 10)
+    call_ms, (hit, t_hit) = sync_ms(lambda: cutting.batched_edge_quad_hits(
+        p0, p1, quads, device=device))
+    hit_cpu, t_cpu = cutting.batched_edge_quad_hits(p0, p1, quads,
+                                                    device="cpu")
+    t_err = float(np.abs(t_hit[hit] - t_cpu[hit_cpu]).max()) if hit.any() \
+        else 0.0
+    if not np.array_equal(hit, hit_cpu) or t_err > CUT_T_TOL:
+        raise AssertionError(f"cut classification on the card differs from "
+                             f"the CPU: {int((hit != hit_cpu).sum())} hits, "
+                             f"max |dt| {t_err}")
+    n_edges = mesh.count_edges()
+    prof = the_profiler()
+    prof.reset()
+    t0 = time.perf_counter()
+    res = scalpel.release(tissue)
+    host["cut"] = time.perf_counter() - t0
+    stages = {k: round(v["avg_ms"] * v["count"] / 1e3, 3)
+              for k, v in prof.stats().items() if k.startswith("cut_")}
+    errs = mesh.check_invariants()
+    pos, cells = mesh.restpositions(), mesh.cells_array()
+    n_parts, labels = femcore.components(cells, len(pos))
+    quality = tet_quality(pos, cells)
+    if errs or res.n_cut_cells == 0 or n_parts <= n_parts_before:
+        raise AssertionError(f"cut: {res}, {n_parts} parts (before "
+                             f"{n_parts_before}), invariants {errs[:3]}")
+    if quality["inverted"] or quality["degenerate"]:
+        raise AssertionError(f"cut mesh quality {quality}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "cut.veg"
+        t0 = time.perf_counter()
+        write_veg(path, pos, cells)
+        back_nodes, back_tets, _ = read_veg(path)
+        host[".veg write + read"] = time.perf_counter() - t0
+    if not np.array_equal(back_tets, cells) or np.abs(
+            back_nodes - pos).max() > 1e-5 * np.abs(pos).max():
+        raise AssertionError("the cut mesh does not read back from .veg")
+    log(f"8.1 cut: {len(tets)} tets, {n_edges} edges; scalpel {len(quads)} "
+        f"quads at x {x0:.6f}: "
+        f"{res.n_cut_edges} cut edges, {res.n_cut_cells} cut cells, "
+        f"{res.n_new_cells} new cells -> {len(pos)} nodes, {len(cells)} tets, "
+        f"{n_parts} parts (before {n_parts_before}); invariants "
+        f"{len(errs)} violations; quality {quality}; classification on the "
+        f"card {classify_ms:.3f} ms (CUDA events, {len(p0)} edges x "
+        f"{len(quads)} quads), {call_ms:.3f} ms with its copies, hits equal "
+        f"to the CPU's, max |dt| {t_err:.3e}; host s {host}, cut stages s "
+        f"{stages} {tag}")
+
+    # 8.2 rebuild the FEM, settle under gravity, push one part's top at
+    # the cut face with the probe through the gizmo.
+    t0 = time.perf_counter()
+    fixed = bottom_nodes_per_component(pos, cells, frac=0.25)
+    fem = build_fem_mesh(pos, cells, fixed=fixed, device=device)
+    body = Deformable(fem, gravity=SIM_GRAVITY)
+    torch.cuda.synchronize()
+    host["FEM rebuild"] = time.perf_counter() - t0
+    node_part = np.full(len(pos), -1)
+    node_part[cells.reshape(-1)] = np.repeat(labels, 4)
+    grav = []
+    for _ in range(INTERACT_STEPS):
+        ms, _ = sync_ms(lambda: body.timestep())
+        grav.append((round(ms, 1), body.stats()["cg_iters"]))
+    side = node_part[np.argmax(np.where(pos[:, 0] > x0, pos[:, 1], -np.inf))]
+    q_now = body.state.q.cpu().numpy()
+    cur = pos + q_now
+    he = np.array(PROBE_HALF)
+    near = (node_part == side) & (pos[:, 0] > x0) & (
+        pos[:, 0] < x0 + 2 * he[0])
+    top = int(np.argmax(np.where(near, cur[:, 1], -np.inf)))
+    probe = AvatarProbe(half_extents=he, force_coeff=PROBE_COEFF, pos=np.array(
+        [x0 + 1e-3 + he[0], cur[top, 1] + he[1] + 0.02, cur[top, 2]]))
+    gizmo = GizmoManager()
+    gizmo.gizmo_type = GizmoType.AVATAR
+    gizmo.pos = probe.pos.copy()
+    listener = _ProbeListener(probe, body, pos)
+    gizmo.register(listener)
+    for _ in range(INTERACT_STEPS):
+        gizmo.apply(np.array([0.0, -PROBE_DRAG, 0.0]))
+    q = body.state.q.cpu().numpy()
+    per_part = {int(c): float(np.abs(q[node_part == c]).max())
+                for c in range(n_parts)}
+    other = max(v for c, v in per_part.items() if c != side)
+    if not np.isfinite(q).all() or per_part[side] <= other:
+        raise AssertionError(f"pushed part {side} max |q| {per_part[side]} "
+                             f"against the others' {other}")
+    if sum(1 for r in listener.rows if r[2]) == 0:
+        raise AssertionError("the probe touched nothing")
+    pushes = [(round(m, 1), i, c) for m, i, c in listener.rows]
+    log(f"8.2 FEM rebuilt ({fem.n_nodes} nodes, {fem.n_tets} tets, "
+        f"{len(fixed)} anchors over {n_parts} components) in "
+        f"{host['FEM rebuild']:.3f} s; gravity steps (ms, CG iterations) "
+        f"{grav}; probe push on part {side} through the gizmo, (ms, CG "
+        f"iterations, contacts) {pushes}, contact face {probe.contact_face}; max |q| per part {per_part} "
+        f"{tag}")
+
+    # 8.3 the cut tissue rendered through coupled_step_fast (K2).
+    t0 = time.perf_counter()
+    interp = build_disp_interp(pos, n_centers=N_CENTERS, fixed=fixed,
+                               kernel="wendland", sigma_fill=SIGMA_FILL,
+                               device=device)
+    host["interpolant"] = time.perf_counter() - t0
+    f_ext = torch.zeros_like(fem.rest)
+    f_ext[:, 1] = SIM_GRAVITY
+    ro, rd = image_rays(WIDTH, HEIGHT, device)
+    hw = (HEIGHT, WIDTH)
+    state, cg_iters, frames = body.state, [], []
+    for _ in range(INTERACT_FRAMES):
+        stats = {}
+        ms, (t_def, hit_def, state) = sync_ms(lambda: coupled_step_fast(
+            scene, fem, interp, state, f_ext, ro, rd, params=params,
+            image_hw=hw, cg_tol=CG_TOL, k_refresh=K_REFRESH,
+            solve_stats=stats))
+        steps["trace_additive_wendland"] += 1
+        frames.append(round(ms, 3))
+        cg_iters.append(stats["forward_iters"])
+    fem_ms, _ = sync_ms(lambda: integ.timestep(fem, state, f_ext,
+                                              cg_tol=CG_TOL))
+    rbf_ms, w = sync_ms(lambda: disp_weights(interp, state.q))
+
+    def trace_only():
+        steps["trace_additive_wendland"] += 1
+        return trace_deformed_rbf_fast(scene, interp, w, ro, rd, params,
+                                       image_hw=hw, need_grads=False,
+                                       k_refresh=K_REFRESH)
+
+    trace_ms, _ = sync_ms(trace_only)
+    spec = wendland_spec(interp, w, k_refresh=K_REFRESH)
+    ro_b, rd_b, _ = tt.image_rays_to_blocks(ro, rd, HEIGHT, WIDTH)
+    inp = tt.prepare_tiles(scene, ro_b, rd_b, params, tt.TILE, spec)
+    k2_ms = uncounted(lambda: event_ms(lambda: tt.trace_additive_cuda(inp),
+                                       5))
+    uncounted(lambda: compare(tt.trace_additive_cuda,
+                              tt.trace_tiles_wendland_plain, inp,
+                              "trace_additive_wendland", log,
+                              f"8.3 K2 on the cut tissue {WIDTH}x{HEIGHT}"))
+    del inp
+    n_def = int(hit_def.sum())
+    if n_def <= 0 or not bool(torch.isfinite(t_def).all()):
+        raise AssertionError(f"cut tissue frame: {n_def} hits")
+    log(f"8.3 coupled_step_fast on the cut tissue {WIDTH}x{HEIGHT}: ms per "
+        f"frame {frames}, CG iterations {cg_iters}, {n_def} hits; split fem "
+        f"{fem_ms:.3f} ms, rbf {rbf_ms:.3f} ms, trace {trace_ms:.3f} ms, K2 "
+        f"alone {k2_ms:.3f} ms; "
+        f"the implicit field is brain's own, so only the displacement shows "
+        f"the cut {tag}")
+    torch.cuda.empty_cache()
+
+    # 8.4 a rigid box dropped off-centre onto the other part of the cut
+    # tissue: 6 DOF, then 3 DOF, on the card.
+    other_part = next(c for c in range(n_parts) if c != side)
+    mine = node_part == other_part
+    centre = pos[mine].mean(0)
+    top_y = pos[mine, 1].max()
+    bhe = np.array(BOX_HALF)
+    box = rigid.RigidBody6State.at_rest(
+        (centre[0] + 0.2, top_y + bhe[1] + BOX_DROP, centre[2] + 0.15),
+        quat=(np.cos(0.2), 0.0, 0.0, np.sin(0.2)), device=device)
+    ground = float(lo[1])
+    # The tissue starts at rest under the box's world's gravity.
+    tissue_state, touched, box_rows = FemState.rest(fem), 0, []
+    for _ in range(BOX_FRAMES_6DOF):
+        inside = rigid.box_tissue_forces_6dof(
+            box, bhe, fem.rest + tissue_state.q)[0].abs().sum(1) > 0
+        touched += int(inside.any())
+        ms, (box, tissue_state, it) = sync_ms(
+            lambda: rigid.coupled_box_tissue_step_6dof(
+                box, bhe, BOX_MASS, fem, tissue_state, h=BOX_DT,
+                ground_y=ground, tissue_gravity=BOX_TISSUE_GRAVITY))
+        box_rows.append((round(ms, 1), it))
+    box3 = rigid.RigidBoxState(pos=box.pos, vel=box.vel)
+    rows3 = []
+    for _ in range(BOX_FRAMES_3DOF):
+        ms, (box3, tissue_state, it) = sync_ms(
+            lambda: rigid.coupled_box_tissue_step(
+                box3, bhe, BOX_MASS, fem, tissue_state, h=BOX_DT,
+                ground_y=ground, tissue_gravity=BOX_TISSUE_GRAVITY))
+        rows3.append((round(ms, 1), it))
+    vals = torch.cat([box.pos, box.vel, box.quat, box.omega, box3.pos,
+                      box3.vel, tissue_state.q.reshape(-1)])
+    if not bool(torch.isfinite(vals).all()) or touched == 0:
+        raise AssertionError(f"box: finite {bool(torch.isfinite(vals).all())}"
+                             f", frames in contact {touched}")
+    log(f"8.4 box on part {other_part} (mass {BOX_MASS}, h {BOX_DT}): 6 DOF "
+        f"(ms, CG iterations) {box_rows}, {touched} frames in contact; "
+        f"height {float(box.pos[1]):.6f}, speed "
+        f"{float(torch.linalg.norm(box.vel)):.6f}, |omega| "
+        f"{float(torch.linalg.norm(box.omega)):.6f}; then 3 DOF {rows3}, "
+        f"height {float(box3.pos[1]):.6f}, speed "
+        f"{float(torch.linalg.norm(box3.vel)):.6f}; tissue max |q| "
+        f"{float(tissue_state.q.abs().max()):.6f} {tag}")
+
+    # 8.5 sketching: a POINT blended onto brain's root, picked, packed,
+    # traced (K1 if the scene stays additive, else K3), then undone.
+    sdef = load_blob(root / "data" / "models" / "blobtree" / "brain.blob")
+    sdef.flatten_instances()
+    sketch = SketchMachine(sdef, device=device)
+    n_prims = len(sdef.prims)
+
+    def traced():
+        sc = sketch.sync()
+        name = ("trace_additive_rest" if tt.is_additive_path(sc)
+                else "trace_general")
+        steps[name] = steps.get(name, 0) + 1
+        ms, (t, h) = sync_ms(lambda: tt.trace_tiles_image(
+            sc, ro, rd, HEIGHT, WIDTH, params))
+        return sc, name, ms, t, h
+
+    _, _, _, _, hit_rest = traced()
+    n_rest = int(hit_rest.sum())
+    s_lo, s_hi = sdef.aabb()
+    bump = (0.5 * (s_lo[0] + s_hi[0]), s_hi[1] + 0.15,
+            0.5 * (s_lo[2] + s_hi[2]))
+    t0 = time.perf_counter()
+    sketch.add_action(SketchAddPrim(PrimType.POINT, pos=bump))
+    sketch.add_action(SketchAddOp(OpType.BLEND, left=sdef.root_idx,
+                                  left_is_op=True, right=n_prims))
+    picked = sketch.select(np.array(bump) + [0.0, 3.0, 0.0], [0.0, -1.0, 0.0])
+    host["sketch + select"] = time.perf_counter() - t0
+    if picked != n_prims:
+        raise AssertionError(f"select picked {picked}, not {n_prims}")
+    pack_ms, edited = sync_ms(sketch.sync)
+    sc, kname, trace_ms, _, hit_e = traced()
+    ro_b, rd_b, _ = tt.image_rays_to_blocks(ro, rd, HEIGHT, WIDTH)
+    if kname == "trace_general":
+        inp = tt.prepare_general(sc, ro_b, rd_b, params)
+        uncounted(lambda: compare(
+            tt.trace_general_cuda,
+            lambda i, c=None: tt.trace_tiles_general_plain(i, c,
+                                                           use_live=False),
+            inp, kname, log, f"8.5 sketched brain {WIDTH}x{HEIGHT}"))
+    else:
+        inp = tt.prepare_tiles(sc, ro_b, rd_b, params)
+        uncounted(lambda: compare(tt.trace_additive_cuda, tt.trace_tiles_plain,
+                                  inp, kname, log,
+                                  f"8.5 sketched brain {WIDTH}x{HEIGHT}"))
+    del inp
+    n_edit = int(hit_e.sum())
+    if not (sketch.backward() and sketch.backward()):
+        raise AssertionError("undo failed")
+    _, _, _, _, hit_undo = traced()
+    n_undo = int(hit_undo.sum())
+    if n_undo != n_rest or n_edit <= n_rest:
+        raise AssertionError(f"hits: rest {n_rest}, sketched {n_edit}, "
+                             f"undone {n_undo}")
+    with tempfile.TemporaryDirectory() as tmp:
+        script = Path(tmp) / "actions.ini"
+        sketch.forward()
+        sketch.forward()
+        sketch.save_actions(script)
+        back = SettingsScript.load(script)
+        kinds = [back.read_str(f"ACTION {i}", "type") for i in range(2)]
+        if back.read_int("GLOBAL", "count") != 2 or kinds != [
+                "ADDPRIM", "ADDOP"]:
+            raise AssertionError(f"action script read back as {kinds}")
+    log(f"8.5 sketch: prim {picked} picked; sync {pack_ms:.3f} ms "
+        f"({edited.n_prims} prims, additive {edited.is_additive}, kernel "
+        f"{kname}); traced {WIDTH}x{HEIGHT} in {trace_ms:.3f} ms, hits rest "
+        f"{n_rest}, sketched {n_edit}, after undo {n_undo}; action script "
+        f"{kinds} {tag}")
+
+    # 8.6 the mass-spring dumbbell and the particles, each on the card
+    # against its CPU run.
+    def springs(dev):
+        ms_ = make_dumbbell(separation=2.0, k=50.0, device=dev)
+        ms_.pos[1, 0] = 1.5
+        for _ in range(AUX_STEPS):
+            ms_ = step_mass_spring(ms_, dt=1 / 120, damping=0.005)
+        return ms_
+
+    def particles(dev):
+        st = init_particles(N_PARTICLES, seed=0, box=1.0, device=dev)
+        for _ in range(AUX_STEPS):
+            st = step_particles(st, dt=1 / 60, box=1.0)
+        return st
+
+    aux_ms, (card_ms, card_p) = sync_ms(lambda: (springs(device),
+                                                 particles(device)))
+    cpu_ms, cpu_p = springs("cpu"), particles("cpu")
+    errs_aux = {}
+    for label, a, b in (("spring pos", card_ms.pos, cpu_ms.pos),
+                        ("spring vel", card_ms.vel, cpu_ms.vel),
+                        ("particle pos", card_p.pos, cpu_p.pos),
+                        ("particle vel", card_p.vel, cpu_p.vel)):
+        scale = float(b.abs().max())
+        errs_aux[label] = float((a.cpu() - b).abs().max()) / scale
+        if errs_aux[label] > AUX_RTOL:
+            raise AssertionError(f"{label}: card against CPU {errs_aux}")
+    if float(card_p.pos.abs().max()) > 1.0 + 1e-5:
+        raise AssertionError("a particle left the box")
+    sep = float(torch.linalg.norm(card_ms.pos[1] - card_ms.pos[0]))
+    log(f"8.6 dumbbell {AUX_STEPS} steps (separation {sep:.6f}) and "
+        f"{N_PARTICLES} particles {AUX_STEPS} steps on the card in "
+        f"{aux_ms:.3f} ms; relative difference to the CPU {errs_aux} {tag}")
+
+    launches = dict(tt.LAUNCHES)
+    log(f"launches in the interaction path: {launches}, steps {steps}; host "
+        f"s {host}; phase total {time.perf_counter() - t_phase:.1f} s")
+    for name, n in launches.items():
+        if (n > 0) != (steps.get(name, 0) > 0):
+            raise AssertionError(f"{name}: {n} launches for "
+                                 f"{steps.get(name, 0)} steps")
+    return launches, steps
+
+
 def launches_per_step(launches, steps):
     """Each kernel's launches over the steps its path drove; raises when a
     path launched its kernel another number of times a step than 1."""
@@ -1241,9 +1682,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 7. the app and its CLI (no tile kernel)
     app_phase(root, device, tag, log)
+    torch.cuda.empty_cache()
+    # 8. surgical interaction, counted
+    launches_i, steps_i = interaction_phase(root, device, params, tag, log)
     paths = {"coupled_frame": (launches, steps),
              "training": (launches_t, steps_t),
-             "simulation_frame": (launches_s, steps_s)}
+             "simulation_frame": (launches_s, steps_s),
+             "interaction": (launches_i, steps_i)}
     by_path = {name: {} for name, _, _ in KERNELS}
     for path, (counted, driven) in paths.items():
         for name, per in launches_per_step(counted, driven).items():

@@ -19,8 +19,12 @@ from . import default_device
 from .blob.scene import OpWire, Scene, WarpWire
 from .fem.grid_fem import GridFem, GridLevel
 from .fem.integrator import FemState
+from .fem.mass_spring import MassSpring
+from .fem.rigid import RigidBody6State, RigidBoxState
 from .fem.tetmesh import FemMesh
 from .mesh.polygonize import SurfaceMesh, TetMesh
+from .mesh.volmesh import VolMesh
+from .ops.particles import ParticleState
 from .render.deformed import DispInterp
 
 
@@ -111,3 +115,30 @@ def fem_mesh_from_numpy(fields: dict, device=None) -> FemMesh:
 def surface_mesh_from_numpy(fields: dict, device=None) -> SurfaceMesh:
     """Polygonized SurfaceMesh; the two counts stay tensors."""
     return _build(SurfaceMesh, fields, device)
+
+
+def rigid_box_state(fields: dict, device=None) -> RigidBoxState:
+    return _build(RigidBoxState, fields, device)
+
+
+def rigid_body6_state(fields: dict, device=None) -> RigidBody6State:
+    return _build(RigidBody6State, fields, device)
+
+
+def mass_spring(fields: dict, device=None) -> MassSpring:
+    return _build(MassSpring, fields, device)
+
+
+def particle_state(fields: dict, device=None) -> ParticleState:
+    return _build(ParticleState, fields, device)
+
+
+def volmesh(positions, rest_positions, cells) -> VolMesh:
+    """Host VolMesh of `cells` over nodes at `rest_positions`, moved to
+    `positions`; its edge, face and cell numbering follow from `cells`
+    alone, as in the JAX package's."""
+    vm = VolMesh(np.asarray(rest_positions, np.float64),
+                 np.asarray(cells, np.int64))
+    for node, p in zip(vm.nodes, np.asarray(positions, np.float64)):
+        node.pos = p.copy()
+    return vm

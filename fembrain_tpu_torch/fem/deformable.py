@@ -18,6 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import femcore
 from . import integrator as integ
 from .integrator import FemState
 from .tetmesh import FemMesh
@@ -36,7 +37,8 @@ class StepStats:
 
 
 def node_adjacency(tets: np.ndarray, n_nodes: int) -> list[np.ndarray]:
-    """Sorted neighbor arrays per node from tet connectivity."""
+    """Sorted neighbor arrays per node from tet connectivity (the plain
+    twin of femcore.NativeAdjacency)."""
     t = np.asarray(tets, np.int64)
     i, j = np.meshgrid(np.arange(4), np.arange(4), indexing="ij")
     off = i != j
@@ -56,7 +58,8 @@ def haptic_ring_forces(
     radius: int = DEFAULT_HAPTIC_RADIUS,
 ) -> np.ndarray:
     """Propagate contact forces over BFS rings with linear falloff
-    (reference Deformable::applyHapticForces, Deformable.cpp:634-706)."""
+    (reference Deformable::applyHapticForces, Deformable.cpp:634-706); the
+    plain twin of femcore.NativeAdjacency.ring_forces."""
     f = np.zeros((n_nodes, 3))
     for idx, force in zip(np.asarray(contact_idx), np.asarray(contact_force)):
         dist = {int(idx): 0}
@@ -140,7 +143,10 @@ class Deformable:
         self.mesh = mesh
         self.h = h
         self.state = FemState.rest(mesh)
-        self.adjacency = node_adjacency(mesh.tets.cpu().numpy(), mesh.n_nodes)
+        # Ring forces from the host core (csrc/femcore.cpp), as the
+        # reference's Deformable takes them when its core builds.
+        self._native_adj = femcore.NativeAdjacency(mesh.tets.cpu().numpy(),
+                                                   mesh.n_nodes)
         self._stats: StepStats | None = None
         self._kw = dict(
             h=h, gravity=gravity, ground_y=ground_y,
@@ -161,10 +167,8 @@ class Deformable:
 
     def haptic_forces(self, contact_idx, contact_force,
                       radius=DEFAULT_HAPTIC_RADIUS) -> np.ndarray:
-        return haptic_ring_forces(
-            self.adjacency, self.mesh.n_nodes, contact_idx, contact_force,
-            radius
-        )
+        return self._native_adj.ring_forces(contact_idx, contact_force,
+                                            radius)
 
     def reset(self) -> None:
         """Reference resetDeformations -> ResetToRest (Deformable.cpp:629-632)."""

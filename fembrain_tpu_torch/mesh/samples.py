@@ -2,13 +2,14 @@
 VolMeshSamples, src/deformable/VolMeshSamples.{h,cpp}:15-190): one-tet,
 two-tet, truth cube, egg shell; and anchor sets for tet meshes.
 
-Counterpart of fembrain_tpu/mesh/samples.py, in numpy on the host
-(`bottom_nodes_per_component` by its union-find, not the JAX package's
-native one)."""
+Counterpart of fembrain_tpu/mesh/samples.py, in numpy on the host;
+`bottom_nodes_per_component` takes its components from the host core
+(csrc/femcore.cpp), as the JAX package does when its core builds."""
 from __future__ import annotations
 
 import numpy as np
 
+from .. import femcore
 from . import tables as T
 
 
@@ -125,16 +126,10 @@ def bottom_nodes(nodes: np.ndarray, tol: float = 1e-6) -> np.ndarray:
     return np.where(nodes[:, 1] <= ymin + tol)[0]
 
 
-def bottom_nodes_per_component(nodes: np.ndarray, tets: np.ndarray,
-                               tol: float = 1e-3,
-                               frac: float = 0.0) -> np.ndarray:
-    """Indices anchoring EVERY connected component at its own lowest
-    nodes. Anchoring only the global minimum-y plane leaves disjoint
-    parts (the ventricle blob is several lobes) entirely unconstrained —
-    free fall, unbounded |q|, and a singular K_eff restrained only by
-    mass. Components come from a union-find over the tets."""
-    tets = np.asarray(tets, np.int64)
-    parent = np.arange(len(nodes))
+def union_find_components(n_nodes: int, tets: np.ndarray) -> np.ndarray:
+    """Per-node component root by a union-find over the tets (the plain
+    twin of femcore.components). A node in no tet is its own root."""
+    parent = np.arange(n_nodes)
 
     def find(a):
         while parent[a] != a:
@@ -142,14 +137,32 @@ def bottom_nodes_per_component(nodes: np.ndarray, tets: np.ndarray,
             a = parent[a]
         return a
 
-    for t in tets:
+    for t in np.asarray(tets, np.int64):
         r = find(t[0])
         for v in t[1:]:
             parent[find(v)] = r
-    comp = np.asarray([find(i) for i in range(len(nodes))])
+    return np.asarray([find(i) for i in range(n_nodes)])
+
+
+def bottom_nodes_per_component(nodes: np.ndarray, tets: np.ndarray,
+                               tol: float = 1e-3,
+                               frac: float = 0.0) -> np.ndarray:
+    """Indices anchoring EVERY connected component at its own lowest
+    nodes. Anchoring only the global minimum-y plane leaves disjoint
+    parts (the ventricle blob is several lobes) entirely unconstrained —
+    free fall, unbounded |q|, and a singular K_eff restrained only by
+    mass. Components come from femcore.components, in the order of their
+    first tet; a node in no tet (one a cut left behind) belongs to none
+    and is never anchored."""
+    tets = np.asarray(tets, np.int64)
+    _, labels = femcore.components(tets, n_nodes=len(nodes))
+    comp = np.full(len(nodes), -1, np.int64)
+    comp[tets.reshape(-1)] = np.repeat(labels, 4)
 
     out = []
     for c in np.unique(comp):
+        if c < 0:
+            continue
         idx = np.where(comp == c)[0]
         ymin, ymax = nodes[idx, 1].min(), nodes[idx, 1].max()
         # frac > 0 anchors the bottom slab of each component's height

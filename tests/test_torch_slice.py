@@ -34,8 +34,13 @@ import fembrain_tpu_torch
 from fembrain_tpu_torch import app as papp
 from fembrain_tpu_torch import convert
 from fembrain_tpu_torch.blob.scene import SceneDef
+from fembrain_tpu_torch.blob import sketch as psketch
+from fembrain_tpu_torch.fem import cutting as pcut
 from fembrain_tpu_torch.fem import grid_fem as pgfm
+from fembrain_tpu_torch.fem import mass_spring as pms
+from fembrain_tpu_torch.fem import rigid as prigid
 from fembrain_tpu_torch.fem import tetmesh as ptet
+from fembrain_tpu_torch.ops import particles as ppart
 from fembrain_tpu_torch.ops import rbf as prbf
 from fembrain_tpu_torch.render import deformed as pd
 from fembrain_tpu_torch.render import tile_trace as ptt
@@ -200,7 +205,8 @@ def test_chip_smoke_holds_every_ported_kernel():
         assert int(line) <= len((REPO / ref).read_text().splitlines())
     src = (REPO / "chip_smoke.py").read_text()
     for phase in ("kernel_phase", "main_path_phase", "training_phase",
-                  "simulation_frame_phase", "app_phase"):
+                  "simulation_frame_phase", "app_phase",
+                  "interaction_phase"):
         assert f"def {phase}(" in src and f" {phase}(root" in src
 
 
@@ -231,10 +237,18 @@ _CONSTRUCTORS = [
     (ptet.build_fem_mesh, ptet.build_fem_mesh),
     (prbf.FastRBF.__init__, prbf.FastRBF.__init__),
     (papp.SimulationApp.__init__, papp.SimulationApp.__init__),
+    (pcut.CuttableMesh.__init__, pcut.CuttableMesh.__init__),
+    (pcut.batched_edge_quad_hits, pcut.batched_edge_quad_hits),
+    (psketch.SketchMachine.__init__, psketch.SketchMachine.__init__),
+    (prigid.RigidBoxState.at_rest, prigid.RigidBoxState.at_rest),
+    (prigid.RigidBody6State.at_rest, prigid.RigidBody6State.at_rest),
+    (pms.make_dumbbell, pms.make_dumbbell),
+    (ppart.init_particles, ppart.init_particles),
 ] + [(f, convert._build) for f in (
     convert.scene, convert.tet_mesh, convert.grid_fem, convert.disp_interp,
     convert.fem_state, convert.fem_mesh_from_numpy,
-    convert.surface_mesh_from_numpy)]
+    convert.surface_mesh_from_numpy, convert.rigid_box_state,
+    convert.rigid_body6_state, convert.mass_spring, convert.particle_state)]
 
 
 @pytest.mark.parametrize("ctor,resolver", _CONSTRUCTORS,
@@ -283,6 +297,92 @@ def test_app_slice_module_has_the_reference_names(rel):
     ref = _top_level_names(REPO / "fembrain_tpu" / rel)
     got = _top_level_names(REPO / "fembrain_tpu_torch" / rel)
     assert ref - got == _LEFT_OUT.get(rel, set()), rel
+
+
+# The interaction slice's file pairs (reference -> port), and the names
+# each leaves out on purpose: the JAX package's core binding finds its
+# source beside the JAX package and memoises a failed build (`_SRC`,
+# `_SO`, `_tried`; the port builds its own copy into _build/ and raises);
+# `_edge_quad_hits_jit` and its cache `_EDGE_QUAD_HITS` are jax.jit (the
+# port's `edge_quad_hits` runs eagerly on the tensors' device).
+_INTERACTION_SLICE = {
+    "native/__init__.py": "femcore.py",
+    "mesh/volmesh.py": "mesh/volmesh.py",
+    "fem/cutting.py": "fem/cutting.py",
+    "mesh/quality.py": "mesh/quality.py",
+    "mesh/io.py": "mesh/io.py",
+    "fem/avatars.py": "fem/avatars.py",
+    "graphics/gizmo.py": "graphics/gizmo.py",
+    "graphics/spline.py": "graphics/spline.py",
+    "graphics/surface_mesh.py": "graphics/surface_mesh.py",
+    "graphics/__init__.py": "graphics/__init__.py",
+    "fem/collision.py": "fem/collision.py",
+    "fem/rigid.py": "fem/rigid.py",
+    "fem/mass_spring.py": "fem/mass_spring.py",
+    "ops/particles.py": "ops/particles.py",
+    "blob/kdtree.py": "blob/kdtree.py",
+    "blob/sketch.py": "blob/sketch.py",
+}
+_INTERACTION_LEFT_OUT = {
+    "native/__init__.py": {"_SRC", "_SO", "_tried"},
+    "fem/cutting.py": {"_edge_quad_hits_jit", "_EDGE_QUAD_HITS"},
+}
+
+
+def _signatures(path):
+    """{qualified name: [(parameter, default source or None)]} for the
+    top-level functions and the methods of top-level classes."""
+    out = {}
+
+    def sig(fn):
+        a = fn.args
+        params = a.posonlyargs + a.args
+        defaults = [None] * (len(params) - len(a.defaults)) + [
+            ast.unparse(d) for d in a.defaults]
+        rows = list(zip([p.arg for p in params], defaults))
+        rows += [(p.arg, None if d is None else ast.unparse(d))
+                 for p, d in zip(a.kwonlyargs, a.kw_defaults)]
+        return rows
+
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.FunctionDef):
+            out[node.name] = sig(node)
+        elif isinstance(node, ast.ClassDef):
+            for item in node.body:
+                if isinstance(item, ast.FunctionDef):
+                    out[f"{node.name}.{item.name}"] = sig(item)
+    return out
+
+
+def _dataclass_fields(path):
+    return {node.name: [item.target.id for item in node.body
+                        if isinstance(item, ast.AnnAssign)]
+            for node in ast.parse(path.read_text()).body
+            if isinstance(node, ast.ClassDef)}
+
+
+@pytest.mark.parametrize("ref_rel", sorted(_INTERACTION_SLICE))
+def test_interaction_slice_module_matches_the_reference(ref_rel):
+    """Each module of the interaction slice has every top-level name of
+    its JAX counterpart (but those left out on purpose), the same
+    parameters with the same defaults, in order, where the port may add a
+    trailing `device`, and the same dataclass fields in the same order."""
+    ref = REPO / "fembrain_tpu" / ref_rel
+    got = REPO / "fembrain_tpu_torch" / _INTERACTION_SLICE[ref_rel]
+    left_out = _INTERACTION_LEFT_OUT.get(ref_rel, set())
+    assert _top_level_names(ref) - _top_level_names(got) == left_out
+    ref_sigs, got_sigs = _signatures(ref), _signatures(got)
+    for name, params in ref_sigs.items():
+        if name.split(".")[0] in left_out:
+            continue
+        mine = got_sigs[name]
+        assert mine[: len(params)] == params, (ref_rel, name)
+        assert [p for p, _ in mine[len(params):]] in ([], ["device"]), (
+            ref_rel, name)
+    got_fields = _dataclass_fields(got)
+    for cls, fields in _dataclass_fields(ref).items():
+        if cls not in left_out:
+            assert got_fields[cls] == fields, (ref_rel, cls)
 
 
 def test_reference_names_and_return_shapes():

@@ -221,8 +221,9 @@ def test_differentiable_timestep_gradient_to_ke_scale(mesh):
 
 def test_deformable_with_ground_haptics_and_reset(mesh):
     """Deformable against the JAX package's: three steps under gravity
-    with a ground plane and a haptic ring push; the ring forces and the
-    adjacency are equal."""
+    with a ground plane and a haptic ring push; the adjacency of the two
+    packages' numpy twins is equal, and the port's ring forces (from its
+    host core) equal the JAX package's Python BFS."""
     jm, pm = mesh["jm"], mesh["pm"]
     ground = float(mesh["nodes"][:, 1].min()) + 0.6
     kw = dict(gravity=GRAVITY, ground_y=ground)
@@ -231,7 +232,8 @@ def test_deformable_with_ground_haptics_and_reset(mesh):
     jbody.adjacency = jdef.node_adjacency(mesh["tets"], jm.n_nodes)
     pbody = pdef.Deformable(pm, **kw)
     assert pbody.stats() == {}
-    for a, b in zip(jbody.adjacency, pbody.adjacency):
+    for a, b in zip(jbody.adjacency,
+                    pdef.node_adjacency(mesh["tets"], pm.n_nodes)):
         np.testing.assert_array_equal(a, b)
     top = int(np.argmax(mesh["nodes"][:, 1]))
     idx, force = np.array([top, 3]), np.array([[0.0, -4000.0, 500.0],
