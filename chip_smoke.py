@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's coupled render+deform frame, its training
-path, its simulation frame, its app and its surgical interaction once on
-one CUDA card, through its hand-written kernels.
+path, its simulation frame, its app, its surgical interaction and its
+multi-device layer once on one CUDA card, through its hand-written
+kernels.
 
     python3 chip_smoke.py
 
@@ -76,11 +77,25 @@ Phases, each raising on failure:
      and trace again (the rest hit count), save and read back the action
      script; run the mass-spring dumbbell and 65,536 particles 600 steps
      on the card against the CPU.
-Phases 4 to 6 and 8 also count the frames and steps they drive, and each
-kernel's launches per step come from that, path by path: launches over
-steps, held to 1. Then one JSON line with the kernels (`launches` is the
-sum over the counted paths, `launches_by_path` the parts), the card line,
-and the result line.
+  9. the multi-device layer on the one card: the kernels built, the
+     single-device port's results first, then D = 1 rank over NCCL and
+     D = 2 ranks that both compute on cuda:0 and talk over gloo (each
+     collective staged through the host), each rank started as its own
+     process: the sharded rest trace of brain (K1) and of the resection
+     (K3), twice each, bit for bit the single-device ones; 3 grid-backed
+     sharded coupled frames (K2) and 2 node-partitioned ones (K4) from
+     rest at the coupled cell's CG tolerance, held to the single-device
+     frames by hit agreement, their FEM state within MD_Q_REL and their
+     trace stage on the ranks' own state bit for bit the single-device
+     one; one differentiable grid frame with the biharmonic interpolant
+     (K4) and its E-gradient, the same on every rank and within
+     MD_GRAD_REL of the single-device one. Per rank: ms, CG iterations,
+     collectives and the bytes staged; launches counted in the ranks.
+Phases 4 to 6, 8 and 9 also count the frames and steps they drive, and
+each kernel's launches per step come from that, path by path: launches
+over steps, held to 1. Then one JSON line with the kernels (`launches`
+is the sum over the counted paths, `launches_by_path` the parts), the
+card line, and the result line.
 It needs a CUDA card and the repo beside it (the package
 fembrain_tpu_torch/ and data/models/), and exits non-zero, naming what is
 missing, without either.
@@ -1605,6 +1620,319 @@ def interaction_phase(root, device, params, tag, log):
     return launches, steps
 
 
+# Phase 9, multi-device on the one card: the groups of ranks and their
+# transports (NCCL takes one card a rank; two ranks share the card over
+# gloo, staging each collective through the host), the frames each rank
+# drives (forward frames at the coupled cell's CG_TOL), and how far a
+# frame's FEM state may sit from the single-device step's (max |dq| /
+# max |q|): two solves with other reduction orders agree within about
+# their tolerance, CG_TOL forward and 1e-6 for the differentiable one.
+MD_GROUPS = ((1, "nccl"), (2, "gloo"))
+MD_GRID_FRAMES, MD_PART_FRAMES = 3, 2
+MD_Q_REL = {"grid": CG_TOL, "part": CG_TOL, "diff": 1e-3}
+MD_GRAD_REL = 1e-3
+MD_TIMEOUT_S = 300
+
+
+def md_host_inputs(root: Path, device):
+    """Phase 9's set-up on the host, handed to every rank: brain's tet
+    mesh at CELLSIZE (the port's TetMesh as numpy fields), its anchors,
+    the grid and the per-node gravity loads."""
+    import numpy as np
+
+    from fembrain_tpu_torch import convert
+    from fembrain_tpu_torch.fem.tetmesh import build_fem_mesh
+
+    scene = load_scene(root, device)
+    frame = fem_setup(scene, CELLSIZE, device, N_CENTERS, "wendland", -500.0)
+    tm, grid = frame["tm"], frame["grid"]
+    tets = tm.tets[: tm.n_tets].cpu().numpy()
+    fem = build_fem_mesh(frame["nodes"], tets, fixed=frame["fixed"],
+                         device=device)
+    f_nodes = np.zeros((tm.n_nodes, 3), np.float32)
+    f_nodes[:, 1] = -500.0 * fem.mass.cpu().numpy()
+    host = dict(grid=(tuple(grid.lo), tuple(grid.dims), grid.cellsize),
+                tm=convert.numpy_fields(tm), nodes=frame["nodes"], tets=tets,
+                fixed=frame["fixed"], n2g=frame["n2g"], f_nodes=f_nodes,
+                f_grid=frame["f_ext"].cpu().numpy())
+    return host, scene, frame, fem
+
+
+def md_rank(device, root, host, params):
+    """One rank of phase 9 on `device`: its rows of the sharded rest trace
+    of brain (K1) and of the resection (K3), each run twice (the second
+    warm), MD_GRID_FRAMES frames of coupled_step_grid_sharded (K2),
+    MD_PART_FRAMES of coupled_step_sharded (K4), and one differentiable
+    grid frame with the biharmonic interpolant (K4) and its E-gradient;
+    with its launches, collectives, bytes staged, CG iterations and ms."""
+    import numpy as np
+    import torch
+
+    from fembrain_tpu_torch import convert
+    from fembrain_tpu_torch.blob.examples import brain_resection
+    from fembrain_tpu_torch.fem import grid_sharded as gsh
+    from fembrain_tpu_torch.fem import partitioned as pt
+    from fembrain_tpu_torch.mesh.polygonize import GridSpec
+    from fembrain_tpu_torch.parallel import sharding as sh
+    from fembrain_tpu_torch.render import coupled_sharded as csd
+    from fembrain_tpu_torch.render import tile_trace as tt
+
+    t0 = time.perf_counter()
+    world = torch.distributed.get_world_size()
+    scene = load_scene(Path(root), device)
+    resection = brain_resection().pack(device=device)
+    tm = convert.tet_mesh(host["tm"], device=device)
+    cgs = csd.build_coupled_grid_sharded(
+        GridSpec(*host["grid"]), tm, world, fixed_nodes=host["fixed"],
+        n_centers=N_CENTERS, kernel="wendland", sigma_fill=SIGMA_FILL,
+        device=device)
+    cs = csd.build_coupled_sharded(host["nodes"], host["tets"], world,
+                                   fixed=host["fixed"], device=device)
+    cgs_b = dataclasses.replace(cgs, interp=cs.interp, center_flat=(
+        torch.as_tensor(host["n2g"][cs.interp.center_nodes.cpu().numpy()]
+                        .astype(np.int32), device=device)))
+    gmesh, rmesh = gsh.make_grid_mesh(), sh.make_mesh()
+    nmesh = sh.make_mesh(axis=pt.NODE_AXIS)
+    ro, rd = image_rays(WIDTH, HEIGHT, device)
+    hw = (HEIGHT, WIDTH)
+    f_grid = gsh.to_shard_layout(cgs.sgf, torch.as_tensor(
+        host["f_grid"], device=device))[cgs.sgf.part]
+    f_part = pt.to_partition_order(cs.pm, torch.as_tensor(
+        host["f_nodes"], device=device))[cs.pm.part]
+    torch.cuda.synchronize()
+    out = dict(rank=cgs.sgf.part, setup_s=time.perf_counter() - t0, ms={},
+               iters={})
+
+    tt.reset_launch_counts()
+    sh.reset_counts()
+    for name, sc in (("rest", scene), ("resection", resection)):
+        out["ms"][name] = []
+        for _ in range(2):      # the first call in a process loads modules
+            ms, (t, hit) = sync_ms(lambda: tt.trace_tiles_image_sharded(
+                sc, ro, rd, HEIGHT, WIDTH, rmesh, params=params))
+            out["ms"][name].append(ms)
+        out[name] = (t.cpu(), hit.cpu())
+
+    def frames(step, state, n, key):
+        out["ms"][key], out["iters"][key] = [], []
+        for _ in range(n):
+            ms, (t, hit, state, it) = sync_ms(lambda: step(*state))
+            out["ms"][key].append(ms)
+            out["iters"][key].append(it)
+        out[key] = (t.cpu(), hit.cpu(), state[0].cpu())
+
+    frames(lambda q, v, dv: csd.coupled_step_grid_sharded(
+        scene, cgs, gmesh, q, v, dv, f_grid, ro, rd, params=params,
+        image_hw=hw, cg_tol=CG_TOL), cgs.sgf.rest_state(),
+        MD_GRID_FRAMES, "grid")
+    z = torch.zeros_like(f_part)
+    frames(lambda q, v, dv: csd.coupled_step_sharded(
+        scene, cs, nmesh, q, v, dv, f_part, ro, rd, params=params,
+        image_hw=hw, cg_tol=CG_TOL), (z, z, z), MD_PART_FRAMES, "part")
+
+    e = torch.tensor(1.0, device=device, requires_grad=True)
+    q, v, dv = cgs.sgf.rest_state()
+    fwd_ms, (t, hit, (q, _, _), _) = sync_ms(
+        lambda: csd.coupled_step_grid_sharded(
+            scene, cgs_b, gmesh, q, v, dv, f_grid, ro, rd, E_scale=e,
+            params=params, image_hw=hw, differentiable=True))
+    loss = torch.sum(torch.where(hit, t, 0.0))
+    bwd_ms, _ = sync_ms(loss.backward)
+    out["diff"] = (t.detach().cpu(), hit.cpu(), q.detach().cpu())
+    out["grad"] = float(e.grad)
+    out["ms"]["diff"] = [fwd_ms, bwd_ms]
+    out["launches"], out["counts"] = dict(tt.LAUNCHES), dict(sh.COUNTS)
+    out["perm"] = cs.pm.perm.cpu()
+    return out
+
+
+def multi_device_phase(root, device, params, tag, log):
+    """Phase 9: the multi-device layer on the one card, counted in the
+    ranks; returns (launches, steps driven per kernel), summed over every
+    rank of every group."""
+    import torch
+
+    from fembrain_tpu_torch.blob.examples import brain_resection
+    from fembrain_tpu_torch.fem import integrator as integ
+    from fembrain_tpu_torch.parallel import sharding as sh
+    from fembrain_tpu_torch.render import tile_trace as tt
+    from fembrain_tpu_torch.render.deformed import (
+        build_disp_interp, coupled_step_fast, coupled_step_grid_fast,
+        disp_weights, disp_weights_centers, trace_deformed_rbf_fast,
+    )
+
+    t_phase = time.perf_counter()
+    host, scene, frame, fem = md_host_inputs(root, device)
+    gf, interp, cgi = frame["gf"], frame["interp"], frame["cgi"]
+    bih = build_disp_interp(frame["nodes"], fixed=frame["fixed"],
+                            device=device)
+    cgi_b = center_grid_index(bih, frame["n2g"], device)
+    ro, rd = image_rays(WIDTH, HEIGHT, device)
+    hw = (HEIGHT, WIDTH)
+    f_nodes = torch.as_tensor(host["f_nodes"], device=device)
+
+    # The single-device port's results the ranks are held to (the
+    # parent's launches are not the path's: the ranks count their own).
+    ref = {name: tt.trace_tiles_image(sc, ro, rd, HEIGHT, WIDTH, params)
+           for name, sc in (("rest", scene),
+                            ("resection",
+                             brain_resection().pack(device=device)))}
+    st = gf.rest_state()
+    iters, stats = {"grid": [], "part": []}, {}
+    for _ in range(MD_GRID_FRAMES):
+        t, hit, st = coupled_step_grid_fast(
+            scene, gf, interp, cgi, st, frame["f_ext"], ro, rd,
+            E_scale=None, params=params, image_hw=hw, cg_tol=CG_TOL,
+            solve_stats=stats)
+        iters["grid"].append(stats["forward_iters"])
+    ref["grid"] = (t, hit, st.q)
+    st = integ.FemState.rest(fem)
+    for _ in range(MD_PART_FRAMES):
+        t, hit, st = coupled_step_fast(
+            scene, fem, bih, st, f_nodes, ro, rd, E_scale=None,
+            params=params, image_hw=hw, cg_tol=CG_TOL, solve_stats=stats)
+        iters["part"].append(stats["forward_iters"])
+    ref["part"] = (t, hit, st.q)
+    e = torch.tensor(1.0, device=device, requires_grad=True)
+    t, hit, st = coupled_step_grid_fast(
+        scene, gf, bih, cgi_b, gf.rest_state(), frame["f_ext"], ro, rd,
+        E_scale=e, params=params, image_hw=hw, differentiable=True)
+    torch.sum(torch.where(hit, t, 0.0)).backward()
+    ref["diff"] = (t.detach(), hit, st.q.detach())
+    grad = float(e.grad)
+    ref = {k: tuple(x.cpu() for x in v) for k, v in ref.items()}
+    ref["grad"] = grad
+    del gf, fem
+    torch.cuda.empty_cache()
+    log(f"single-device references in {time.perf_counter() - t_phase:.1f} "
+        f"s: CG iterations grid frames {iters['grid']}, partitioned "
+        f"{iters['part']}; dloss/dE {grad:.6f}")
+
+    def retrace(key, q):
+        """The single-device trace stage of a frame on the FEM state q
+        (on the host): center rows, weights, tile trace, and for the
+        differentiable frame its correction."""
+        q = q.to(device)
+        if key == "grid":
+            w = disp_weights_centers(interp, q.reshape(-1, 3)[cgi])
+            ip = interp
+        elif key == "part":
+            w, ip = disp_weights(bih, q), bih
+        else:
+            w = disp_weights_centers(bih, q.reshape(-1, 3)[cgi_b])
+            ip = bih
+        t, hit = trace_deformed_rbf_fast(
+            scene, ip, w, ro, rd, params, image_hw=hw,
+            need_grads=key == "diff")
+        return t.detach().cpu(), hit.cpu()
+
+    launches = {name: 0 for name, _, _ in KERNELS}
+    steps = dict(launches)
+    per_rank_steps = {"trace_additive_rest": 2, "trace_general": 2,
+                      "trace_additive_wendland": MD_GRID_FRAMES,
+                      "trace_additive_biharmonic": MD_PART_FRAMES + 1}
+    for world, backend in MD_GROUPS:
+        t0 = time.perf_counter()
+        ranks = sh.launch(md_rank, world, str(root), host, params,
+                          device="cuda", backend=backend,
+                          timeout_s=MD_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        if [r["rank"] for r in ranks] != list(range(world)):
+            raise AssertionError(f"blocks {[r['rank'] for r in ranks]}")
+        for r in ranks:
+            for name in launches:
+                launches[name] += r["launches"][name]
+                steps[name] += per_rank_steps[name]
+            c = r["counts"]
+            log(f"  D={world} {backend} rank {r['rank']}: set-up "
+                f"{r['setup_s']:.2f} s; ms (first call, warm) rest "
+                + ", ".join(f"{m:.3f}" for m in r["ms"]["rest"])
+                + "; resection "
+                + ", ".join(f"{m:.3f}" for m in r["ms"]["resection"])
+                + "; grid frames "
+                + ", ".join(f"{m:.3f}" for m in r["ms"]["grid"])
+                + " (CG " + ", ".join(map(str, r["iters"]["grid"]))
+                + "), partitioned frames "
+                + ", ".join(f"{m:.3f}" for m in r["ms"]["part"])
+                + " (CG " + ", ".join(map(str, r["iters"]["part"]))
+                + f"), differentiable (first autograd pass of the "
+                f"process) {r['ms']['diff'][0]:.3f} + "
+                f"{r['ms']['diff'][1]:.3f}; collectives: shift {c['shift']}"
+                f", all_reduce {c['all_reduce']}, all_gather "
+                f"{c['all_gather']}; bytes staged {c['staged_bytes']} {tag}")
+        md_check(ranks, ref, retrace, world, log)
+        log(f"D={world} ({backend}, {world} rank(s) on cuda:0): "
+            f"{wall:.1f} s with start-up")
+    log(f"launches in the multi-device path: {launches}, steps {steps}; "
+        f"phase total {time.perf_counter() - t_phase:.1f} s")
+    return launches, steps
+
+
+def md_check(ranks, ref, retrace, world, log):
+    """The ranks' results against the single-device port's: the rest and
+    resection traces bit for bit; each frame's FEM state within MD_Q_REL
+    of the single-device step's; its trace stage on the ranks' own state
+    (center rows, weights, the tile trace, the correction) against the
+    single-device one on that state, bit for bit for the forward frames,
+    within K4's thresholds for the corrected differentiable one; the whole
+    frame against the single-device frame by hit agreement (>= 0.999) and
+    median |dt|; the E-gradient the same on every rank and within
+    MD_GRAD_REL."""
+    import torch
+
+    def rows(key, i):
+        return torch.cat([r[key][i] for r in ranks])
+
+    for key in ("rest", "resection"):
+        if not (torch.equal(rows(key, 0), ref[key][0])
+                and torch.equal(rows(key, 1), ref[key][1])):
+            raise AssertionError(f"D={world}: sharded {key} trace differs "
+                                 f"from the single-device one")
+    for key in ("grid", "part", "diff"):
+        kernel = ("trace_additive_wendland" if key == "grid"
+                  else "trace_additive_biharmonic")
+        agree_min, max_tol, med_tol = THRESHOLDS[kernel]
+        t, hit = rows(key, 0), rows(key, 1)
+        q1 = ref[key][2]
+        q = rows(key, 2)
+        if key == "part":         # partition order back to node ids
+            perm = ranks[0]["perm"].long()
+            q = torch.zeros_like(q1).index_copy(0, perm, q[: q1.shape[0]])
+        else:                     # the slabs stacked, padding planes off
+            q = q[: q1.shape[0]]
+        rel = float((q - q1).abs().max()) / float(q1.abs().max())
+        t2, h2 = retrace(key, q)
+        same = torch.equal(t, t2) and torch.equal(hit, h2)
+        both = hit & h2
+        dt2 = torch.abs(t[both] - t2[both])
+        agree = float((hit == ref[key][1]).float().mean())
+        both = hit & ref[key][1]
+        dt = torch.abs(t[both] - ref[key][0][both])
+        log(f"  D={world} {key}: max |dq| / max |q| {rel:.3e}; trace on "
+            f"the ranks' state {'bit for bit' if same else 'max |dt| '}"
+            f"{'' if same else f'{float(dt2.max()):.3e}'}; against the "
+            f"single-device frame: hits {int(hit.sum())} vs "
+            f"{int(ref[key][1].sum())}, agreement {agree:.6f}, max |dt| "
+            f"{float(dt.max()):.3e} ({int((dt >= max_tol).sum())} over "
+            f"{max_tol:g}), median {float(dt.median()):.3e}")
+        if not rel < MD_Q_REL[key]:
+            raise AssertionError(f"D={world} {key}: FEM state off by {rel}")
+        if key != "diff" and not same:
+            raise AssertionError(f"D={world} {key}: trace stage differs")
+        if key == "diff" and (not torch.equal(hit, h2)
+                              or float(dt2.max()) >= max_tol):
+            raise AssertionError(f"D={world} {key}: corrected trace off")
+        if agree < max(agree_min, 0.999) or (
+                med_tol is not None and float(dt.median()) >= med_tol):
+            raise AssertionError(f"D={world} {key}: frame off")
+    g = [r["grad"] for r in ranks]
+    rel = abs(g[0] - ref["grad"]) / max(abs(ref["grad"]), 1e-12)
+    log(f"  D={world} dloss/dE {g[0]:.6f} (single device "
+        f"{ref['grad']:.6f}, relative {rel:.3e})")
+    if len(set(g)) != 1 or not rel < MD_GRAD_REL:
+        raise AssertionError(f"D={world} E-gradient {g} vs {ref['grad']}")
+
+
 def launches_per_step(launches, steps):
     """Each kernel's launches over the steps its path drove; raises when a
     path launched its kernel another number of times a step than 1."""
@@ -1685,10 +2013,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 8. surgical interaction, counted
     launches_i, steps_i = interaction_phase(root, device, params, tag, log)
+    torch.cuda.empty_cache()
+    # 9. multi-device on the one card, counted in the ranks
+    launches_m, steps_m = multi_device_phase(root, device, params, tag, log)
     paths = {"coupled_frame": (launches, steps),
              "training": (launches_t, steps_t),
              "simulation_frame": (launches_s, steps_s),
-             "interaction": (launches_i, steps_i)}
+             "interaction": (launches_i, steps_i),
+             "multi_device": (launches_m, steps_m)}
     by_path = {name: {} for name, _, _ in KERNELS}
     for path, (counted, driven) in paths.items():
         for name, per in launches_per_step(counted, driven).items():

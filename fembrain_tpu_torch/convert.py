@@ -29,8 +29,9 @@ from .render.deformed import DispInterp
 
 
 def numpy_fields(obj) -> dict:
-    """Dataclass instance -> {field: value}, arrays as numpy, nested
-    dataclasses (also inside tuples) as nested dicts."""
+    """Dataclass instance -> {field: value}, arrays (tensors on any
+    device too) as numpy, nested dataclasses (also inside tuples) as
+    nested dicts."""
     def conv(v):
         if dataclasses.is_dataclass(v):
             return numpy_fields(v)
@@ -38,6 +39,8 @@ def numpy_fields(obj) -> dict:
             return [conv(x) for x in v]
         if v is None or isinstance(v, (bool, int, float, str, tuple)):
             return v
+        if isinstance(v, torch.Tensor):
+            return v.detach().cpu().numpy()
         return np.asarray(v)
 
     return {f.name: conv(getattr(obj, f.name)) for f in dataclasses.fields(obj)}

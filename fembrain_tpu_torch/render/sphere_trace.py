@@ -21,7 +21,7 @@ import torch.utils.checkpoint
 
 from ..blob.scene import Scene
 from ..blob.types import ISO_VALUE
-from ..graphics.materials import PHONG, Material, triplanar_sample
+from ..graphics.materials import PHONG, Material, triplanar_sample_tensor
 from ..ops.field import field, vertex_attributes
 from .camera import Camera, generate_rays
 
@@ -258,8 +258,8 @@ def shade_hits(attrs, ro, rd, t_hit, hit_mask, light_dir, background,
             torch.clamp(torch.sum(g * g, -1, keepdim=True), min=1e-24))
         albedo = col[:, :3]
         if texture is not None:
-            albedo = albedo * triplanar_sample(texture, x_tex, n,
-                                               texture_scale)
+            albedo = albedo * triplanar_sample_tensor(texture, x_tex, n,
+                                                      texture_scale)
         ndotl = torch.clamp(torch.sum(n * ldir, -1), min=0.0)
         hv = ldir - rdj
         hv = hv / torch.linalg.norm(hv, dim=-1, keepdim=True)

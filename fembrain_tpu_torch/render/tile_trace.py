@@ -52,6 +52,7 @@ from ..ops.field import (
     rows_prim_fields, supports_rows_fast_path,
 )
 from ..ops.warp import warp_components
+from ..parallel import sharding as sh
 from .sphere_trace import (
     TraceParams, _ray_box, newton_nudge, prim_interval,
     support_radius_bound, trace,
@@ -1373,8 +1374,75 @@ def trace_tiles_image(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
     return from_blocks(t_b), from_blocks(hit_b)
 
 
+def _trace_share(scene, ro, rd, device_mesh, axis, params, tile, disp):
+    """This rank's padded share of the rays and its raw roots."""
+    nd, idx = sh.shard_index(device_mesh, axis)
+    n = ro.shape[0]
+    n_pad = -(-n // (nd * tile)) * nd * tile
+    if n_pad > n:
+        ro = torch.cat([ro, torch.full((n_pad - n, 3), 1e7, dtype=ro.dtype,
+                                       device=ro.device)], 0)
+        plus_x = torch.tensor([[1.0, 0.0, 0.0]], dtype=rd.dtype,
+                              device=rd.device)
+        rd = torch.cat([rd, plus_x.expand(n_pad - n, 3)], 0)
+    rows = sh.row_share(n_pad, nd, idx)
+    t, hit = trace_tiles(scene, ro[rows], rd[rows], params, tile, disp)
+    return t, hit, sh.row_share(n, nd, idx, tile)
+
+
+def trace_tiles_sharded(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
+                        device_mesh, axis=None,
+                        params: TraceParams = TraceParams(),
+                        tile: int = TILE,
+                        disp: WendlandSpec | BiharmonicSpec | None = None):
+    """trace_tiles with the rays split over a device mesh
+    (fembrain_tpu/render/pallas_trace.py `trace_pallas_sharded`). Tiles
+    are independent, so the split is exact: every rank holds the whole
+    ray batch ro, rd [N, 3] and the scene and displacement spec, pads the
+    batch to a multiple of ranks x tile with rays that start far away
+    pointing +x, and runs the unchanged single-device trace (K1, K2, K3 or
+    K4 by the scene and `disp`) on its equal share of whole tiles. No
+    collective. `axis` names the mesh dimension the rays split over
+    (None: all jointly). Returns this rank's rows of (t, hit) of the
+    input length: rows parallel.sharding.row_share(N, ranks, rank, tile);
+    the ranks' rows in rank order are the single-device result."""
+    t, hit, rows = _trace_share(scene, ro, rd, device_mesh, axis, params,
+                                tile, disp)
+    keep = rows.stop - rows.start
+    return t[:keep], hit[:keep]
+
+
+def trace_tiles_image_sharded(scene: Scene, ro: torch.Tensor,
+                              rd: torch.Tensor, height: int, width: int,
+                              device_mesh, axis=None,
+                              params: TraceParams = TraceParams(),
+                              tile: int = TILE,
+                              disp: WendlandSpec | BiharmonicSpec | None = None):
+    """Sharded block-coherent image trace (`trace_pallas_image_sharded`):
+    the row-major -> pixel-block permutation runs once over the whole
+    H x W ray grid, the blocks split over the ranks as in
+    trace_tiles_sharded, one all_gather brings the blocks' results to
+    every rank, and each returns its rows of the row-major image:
+    parallel.sharding.row_share(H * W, ranks, rank, tile)."""
+    ro_b, rd_b, from_blocks = image_rays_to_blocks(ro, rd, height, width,
+                                                   tile)
+    t_b, hit_b, _ = _trace_share(scene, ro_b, rd_b, device_mesh, axis,
+                                 params, tile, disp)
+    both = sh.all_gather(torch.stack([t_b, hit_b.to(t_b.dtype)], 1),
+                         sh.split_group(device_mesh, axis))
+    n_b = ro_b.shape[0]
+    t_img = from_blocks(both[:n_b, 0])
+    hit_img = from_blocks(both[:n_b, 1]) > 0.5
+    nd, idx = sh.shard_index(device_mesh, axis)
+    rows = sh.row_share(height * width, nd, idx, tile)
+    return t_img[rows], hit_img[rows]
+
+
 # The reference's names (fembrain_tpu/render/pallas_trace.py). Arguments
 # carry over by keyword; `interpret` and `tile_cond` have no counterpart:
 # the tensors' device chooses between the kernel and its plain version.
 trace_pallas = trace_tiles
 trace_pallas_image = trace_tiles_image
+trace_pallas_sharded = trace_tiles_sharded
+trace_pallas_image_sharded = trace_tiles_image_sharded
+WendlandDisp = WendlandSpec

@@ -206,7 +206,7 @@ def test_chip_smoke_holds_every_ported_kernel():
     src = (REPO / "chip_smoke.py").read_text()
     for phase in ("kernel_phase", "main_path_phase", "training_phase",
                   "simulation_frame_phase", "app_phase",
-                  "interaction_phase"):
+                  "interaction_phase", "multi_device_phase"):
         assert f"def {phase}(" in src and f" {phase}(root" in src
 
 
@@ -383,6 +383,91 @@ def test_interaction_slice_module_matches_the_reference(ref_rel):
     for cls, fields in _dataclass_fields(ref).items():
         if cls not in left_out:
             assert got_fields[cls] == fields, (ref_rel, cls)
+
+
+# The multi-device slice's file pairs and the rest of graphics/ and mesh/
+# (reference -> port), the reference's names each leaves out on purpose
+# (`triplanar_sample_jax` is the port's `triplanar_sample_tensor`, see
+# README "Names"; `_element_spec` is a NamedSharding, where the port's
+# place_sharded slices the rank's block), the parameters it leaves out on purpose (they choose
+# between Pallas and XLA; the tensors' device chooses in the port), and
+# the trailing parameters the port may add: where a block lands
+# (`device`), which block a rank builds (`part`), the transport
+# (`backend`), the ranks a reduction spans (`device_mesh`), the global
+# ray count (`n_total`) and the Wendland support (`sigma_fill`).
+_MULTI_DEVICE_SLICE = {
+    "parallel/__init__.py": "parallel/__init__.py",
+    "parallel/sharding.py": "parallel/sharding.py",
+    "fem/sharded.py": "fem/sharded.py",
+    "fem/partitioned.py": "fem/partitioned.py",
+    "fem/grid_sharded.py": "fem/grid_sharded.py",
+    "render/coupled_sharded.py": "render/coupled_sharded.py",
+    "graphics/raster.py": "graphics/raster.py",
+    "graphics/materials.py": "graphics/materials.py",
+    "mesh/minc.py": "mesh/minc.py",
+}
+_MULTI_DEVICE_LEFT_OUT = {"graphics/materials.py": {"triplanar_sample_jax"},
+                          "fem/sharded.py": {"_element_spec"}}
+_NOT_PORTED_PARAMS = {"interpret", "use_pallas", "tile_cond"}
+_ADDED_PARAMS = {"device", "part", "backend", "device_mesh", "n_total",
+                 "sigma_fill"}
+
+
+@pytest.mark.parametrize("ref_rel", sorted(_MULTI_DEVICE_SLICE))
+def test_multi_device_slice_module_matches_the_reference(ref_rel):
+    """Each module of the multi-device slice and of the rest of graphics/
+    and mesh/ has every top-level name of its JAX counterpart (but those
+    left out on purpose), the same parameters with the same defaults in
+    order (but `interpret`, `use_pallas` and `tile_cond`), where the port
+    may add trailing ones of a named set, and the reference's dataclass
+    fields in order, where the port's may add the block a rank holds."""
+    ref = REPO / "fembrain_tpu" / ref_rel
+    got = REPO / "fembrain_tpu_torch" / _MULTI_DEVICE_SLICE[ref_rel]
+    left_out = _MULTI_DEVICE_LEFT_OUT.get(ref_rel, set())
+    assert _top_level_names(ref) - _top_level_names(got) == left_out
+    ref_sigs, got_sigs = _signatures(ref), _signatures(got)
+    for name, params in ref_sigs.items():
+        if name.split(".")[0] in left_out:
+            continue
+        params = [p for p in params if p[0] not in _NOT_PORTED_PARAMS]
+        mine = got_sigs[name]
+        assert mine[: len(params)] == params, (ref_rel, name)
+        assert {p for p, _ in mine[len(params):]} <= _ADDED_PARAMS, (
+            ref_rel, name)
+    got_fields = _dataclass_fields(got)
+    for cls, fields in _dataclass_fields(ref).items():
+        assert got_fields[cls][: len(fields)] == fields, (ref_rel, cls)
+        assert got_fields[cls][len(fields):] in ([], ["part"]), (ref_rel,
+                                                                 cls)
+
+
+def test_sharded_trace_names_and_imports():
+    """The reference's sharded trace names (and its Wendland spec class)
+    resolve to the port's, the multi-device modules import no jax
+    (checked on every source above), and the collectives count their
+    calls."""
+    from fembrain_tpu_torch.parallel import sharding as psh
+
+    assert ptt.trace_pallas_sharded is ptt.trace_tiles_sharded
+    assert ptt.trace_pallas_image_sharded is ptt.trace_tiles_image_sharded
+    assert ptt.WendlandDisp is ptt.WendlandSpec
+    for fn in ("trace_pallas_sharded", "trace_pallas_image_sharded"):
+        ref = _signatures(REPO / "fembrain_tpu/render/pallas_trace.py")[fn]
+        mine = _signatures(REPO / "fembrain_tpu_torch/render/tile_trace.py")[
+            fn.replace("pallas", "tiles")]
+        assert mine == [p for p in ref if p[0] not in _NOT_PORTED_PARAMS]
+    assert set(psh.COUNTS) >= {"shift", "all_reduce", "all_gather",
+                               "staged_bytes"}
+    names = (REPO / "README.md").read_text().split("### Names")[1]
+    for ref, port in (("pallas_trace.trace_pallas_sharded",
+                       "tile_trace.trace_tiles_sharded"),
+                      ("pallas_trace.trace_pallas_image_sharded",
+                       "tile_trace.trace_tiles_image_sharded"),
+                      ("materials.triplanar_sample_jax",
+                       "materials.triplanar_sample_tensor"),
+                      ("pallas_trace.WendlandDisp", "tile_trace.WendlandSpec"),
+                      ("jax.sharding.Mesh", "DeviceMesh")):
+        assert ref in names and port in names, ref
 
 
 def test_reference_names_and_return_shapes():
