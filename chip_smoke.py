@@ -1620,14 +1620,14 @@ def interaction_phase(root, device, params, tag, log):
     return launches, steps
 
 
-# Phase 9, multi-device on the one card: the groups of ranks and their
-# transports (NCCL takes one card a rank; two ranks share the card over
-# gloo, staging each collective through the host), the frames each rank
+# Phase 9, multi-device on the one card: the world sizes (launch picks
+# the transport: NCCL for one rank on the card, gloo for two that share
+# it, staging each collective through the host), the frames each rank
 # drives (forward frames at the coupled cell's CG_TOL), and how far a
 # frame's FEM state may sit from the single-device step's (max |dq| /
 # max |q|): two solves with other reduction orders agree within about
 # their tolerance, CG_TOL forward and 1e-6 for the differentiable one.
-MD_GROUPS = ((1, "nccl"), (2, "gloo"))
+MD_WORLDS = (1, 2)
 MD_GRID_FRAMES, MD_PART_FRAMES = 3, 2
 MD_Q_REL = {"grid": CG_TOL, "part": CG_TOL, "diff": 1e-3}
 MD_GRAD_REL = 1e-3
@@ -1652,7 +1652,9 @@ def md_host_inputs(root: Path, device):
     f_nodes = np.zeros((tm.n_nodes, 3), np.float32)
     f_nodes[:, 1] = -500.0 * fem.mass.cpu().numpy()
     host = dict(grid=(tuple(grid.lo), tuple(grid.dims), grid.cellsize),
-                tm=convert.numpy_fields(tm), nodes=frame["nodes"], tets=tets,
+                tm=convert.numpy_fields(tm),
+                interp=convert.numpy_fields(frame["interp"]),
+                nodes=frame["nodes"], tets=tets,
                 fixed=frame["fixed"], n2g=frame["n2g"], f_nodes=f_nodes,
                 f_grid=frame["f_ext"].cpu().numpy())
     return host, scene, frame, fem
@@ -1682,15 +1684,23 @@ def md_rank(device, root, host, params):
     scene = load_scene(Path(root), device)
     resection = brain_resection().pack(device=device)
     tm = convert.tet_mesh(host["tm"], device=device)
-    cgs = csd.build_coupled_grid_sharded(
-        GridSpec(*host["grid"]), tm, world, fixed_nodes=host["fixed"],
-        n_centers=N_CENTERS, kernel="wendland", sigma_fill=SIGMA_FILL,
-        device=device)
     cs = csd.build_coupled_sharded(host["nodes"], host["tets"], world,
                                    fixed=host["fixed"], device=device)
-    cgs_b = dataclasses.replace(cgs, interp=cs.interp, center_flat=(
-        torch.as_tensor(host["n2g"][cs.interp.center_nodes.cpu().numpy()]
-                        .astype(np.int32), device=device)))
+    cgs = csd.build_coupled_grid_sharded(
+        GridSpec(*host["grid"]), tm, world, fixed_nodes=host["fixed"],
+        n_centers=N_CENTERS, kernel="wendland", device=device)
+
+    def with_interp(interp):
+        """cgs with `interp` and its centers' grid vertices (the shard
+        layout's flat index is the grid's)."""
+        return dataclasses.replace(cgs, interp=interp, center_flat=(
+            torch.as_tensor(host["n2g"][interp.center_nodes.cpu().numpy()]
+                            .astype(np.int32), device=device)))
+
+    # The grid frames trace with the single-device frame's interpolant
+    # (SIGMA_FILL), the differentiable one with the biharmonic one.
+    cgs_b = with_interp(cs.interp)
+    cgs = with_interp(convert.disp_interp(host["interp"], device=device))
     gmesh, rmesh = gsh.make_grid_mesh(), sh.make_mesh()
     nmesh = sh.make_mesh(axis=pt.NODE_AXIS)
     ro, rd = image_rays(WIDTH, HEIGHT, device)
@@ -1701,7 +1711,7 @@ def md_rank(device, root, host, params):
         host["f_nodes"], device=device))[cs.pm.part]
     torch.cuda.synchronize()
     out = dict(rank=cgs.sgf.part, setup_s=time.perf_counter() - t0, ms={},
-               iters={})
+               iters={}, backend=torch.distributed.get_backend())
 
     tt.reset_launch_counts()
     sh.reset_counts()
@@ -1831,11 +1841,10 @@ def multi_device_phase(root, device, params, tag, log):
     per_rank_steps = {"trace_additive_rest": 2, "trace_general": 2,
                       "trace_additive_wendland": MD_GRID_FRAMES,
                       "trace_additive_biharmonic": MD_PART_FRAMES + 1}
-    for world, backend in MD_GROUPS:
+    for world in MD_WORLDS:
         t0 = time.perf_counter()
         ranks = sh.launch(md_rank, world, str(root), host, params,
-                          device="cuda", backend=backend,
-                          timeout_s=MD_TIMEOUT_S)
+                          device="cuda", timeout_s=MD_TIMEOUT_S)
         wall = time.perf_counter() - t0
         if [r["rank"] for r in ranks] != list(range(world)):
             raise AssertionError(f"blocks {[r['rank'] for r in ranks]}")
@@ -1844,7 +1853,7 @@ def multi_device_phase(root, device, params, tag, log):
                 launches[name] += r["launches"][name]
                 steps[name] += per_rank_steps[name]
             c = r["counts"]
-            log(f"  D={world} {backend} rank {r['rank']}: set-up "
+            log(f"  D={world} {r['backend']} rank {r['rank']}: set-up "
                 f"{r['setup_s']:.2f} s; ms (first call, warm) rest "
                 + ", ".join(f"{m:.3f}" for m in r["ms"]["rest"])
                 + "; resection "
@@ -1861,8 +1870,8 @@ def multi_device_phase(root, device, params, tag, log):
                 f", all_reduce {c['all_reduce']}, all_gather "
                 f"{c['all_gather']}; bytes staged {c['staged_bytes']} {tag}")
         md_check(ranks, ref, retrace, world, log)
-        log(f"D={world} ({backend}, {world} rank(s) on cuda:0): "
-            f"{wall:.1f} s with start-up")
+        log(f"D={world} ({ranks[0]['backend']}, {world} rank(s) on "
+            f"cuda:0): {wall:.1f} s with start-up")
     log(f"launches in the multi-device path: {launches}, steps {steps}; "
         f"phase total {time.perf_counter() - t_phase:.1f} s")
     return launches, steps

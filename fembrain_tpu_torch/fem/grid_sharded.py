@@ -215,7 +215,7 @@ def sharded_timestep(
     which solves cold through integrator.symmetric_solve with the
     distributed operator, so gradients reach the slab's element stiffness
     local.ke; see the module docstring for `precond`)."""
-    (group,) = sh.axis_groups(device_mesh)
+    group = device_mesh.get_group()
     D, Xl = sgf.n_parts, sgf.xl
     d_idx = sh.shard_index(device_mesh)[1]
     if d_idx != sgf.part:

@@ -301,7 +301,7 @@ def partitioned_timestep(
     and solve (the halo shifts are linear, and their backward is the
     reverse shift), so reverse mode runs through the split step; the
     count is then -1. Returns (q', qvel', dv', cg_iters)."""
-    (group,) = sh.axis_groups(device_mesh)
+    group = device_mesh.get_group()
     if sh.shard_index(device_mesh)[1] != pm.part:
         raise ValueError(f"rank holds block {pm.part}, mesh says "
                          f"{sh.shard_index(device_mesh)[1]}")

@@ -70,7 +70,7 @@ def place_sharded(mesh: FemMesh, device_mesh, device=None) -> FemMesh:
 def _shard_fns(mesh: FemMesh, device_mesh):
     """This rank's element kinematics, and the force, K v and diagonal
     assemblies each summed over the ranks by one all_reduce."""
-    (group,) = sh.axis_groups(device_mesh)
+    group = device_mesh.get_group()
     mesh = dataclasses.replace(mesh, tets=mesh.tets.long())
 
     def rotations(u):

@@ -80,26 +80,36 @@ def make_mesh(n_devices: int | None = None, axis: str = RAY_AXIS) -> DeviceMesh:
     return DeviceMesh(_transport(), list(range(n)), mesh_dim_names=(axis,))
 
 
+def _backend(device: torch.device, ranks_per_card: int = 1) -> str:
+    """The transport for ranks computing on `device`: NCCL on cards,
+    one card a rank (it refuses two ranks on one card), gloo otherwise."""
+    return "nccl" if device.type == "cuda" and ranks_per_card <= 1 else "gloo"
+
+
 def initialize_distributed(coordinator_address: str | None = None,
                            num_processes: int | None = None,
                            process_id: int | None = None,
-                           backend: str = "gloo") -> int:
+                           device=None) -> int:
     """Multi-process entry point: with num_processes > 1, join the
     process group at `coordinator_address` (an init method, e.g.
-    "tcp://host:port" or "file:///path") as rank `process_id`, over
-    `backend` ("nccl" with one card a rank, "gloo" otherwise). A single
-    process gets a no-op. Returns the number of ranks."""
+    "tcp://host:port" or "file:///path") as rank `process_id`, for ranks
+    that compute on `device` (the card when None, one card a process:
+    NCCL; gloo for the CPU). A single process gets a no-op. Returns the
+    number of ranks."""
+    from .. import default_device
+
+    device = default_device() if device is None else torch.device(device)
     if num_processes is not None and num_processes > 1:
-        dist.init_process_group(backend, init_method=coordinator_address,
+        dist.init_process_group(_backend(device),
+                                init_method=coordinator_address,
                                 world_size=num_processes, rank=process_id)
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
 def make_host_chip_mesh(n_hosts: int | None = None,
                         chips_per_host: int | None = None) -> DeviceMesh:
-    """2-D ('host', 'chip') mesh over the ranks, host-major: reductions
-    over both run along 'chip' first, so on a real cluster the slow axis
-    between hosts carries the least."""
+    """2-D ('host', 'chip') mesh over the ranks, host-major (rank
+    h * chips_per_host + c is host h's chip c)."""
     world = dist.get_world_size()
     n_hosts = 1 if n_hosts is None else n_hosts
     if chips_per_host is None:
@@ -122,15 +132,6 @@ def shard_index(device_mesh: DeviceMesh, axis=None) -> tuple[int, int]:
         size = device_mesh.size(names.index(a))
         n, idx = n * size, idx * size + device_mesh.get_local_rank(a)
     return n, idx
-
-
-def axis_groups(device_mesh: DeviceMesh, axis=None) -> list:
-    """The process groups of `axis` (None: every dimension), innermost
-    first: a reduction over several dimensions runs along each in turn."""
-    names = device_mesh.mesh_dim_names
-    axes = names if axis is None else ((axis,) if isinstance(axis, str)
-                                       else tuple(axis))
-    return [device_mesh.get_group(a) for a in reversed(axes)]
 
 
 def split_group(device_mesh: DeviceMesh, axis=None):
@@ -368,19 +369,16 @@ def render_loss(scene, ro, rd, target, n_total: int | None = None):
     return torch.sum((d - target) ** 2) / n_total
 
 
-def make_train_step(lr: float = 1e-2, device_mesh: DeviceMesh | None = None):
-    """Differentiable-render training step over rays split across the
-    ranks: every rank differentiates its loss share with respect to every
-    float scene field, the gradients are all-reduced over the mesh (each
-    dimension in turn; the world without a mesh), and every rank applies
-    the same update, so the scene stays the same on all of them. Returns
+def make_train_step(lr: float = 1e-2):
+    """Differentiable-render training step over rays split across all
+    the ranks: every rank differentiates its loss share with respect to
+    every float scene field, the gradients are all-reduced over the
+    ranks, and every rank applies the same update, so the scene stays the
+    same on all of them. Returns
     train_step(scene, ro, rd, target) -> (new_scene, global loss)."""
 
     def train_step(scene, ro, rd, target):
-        groups = [None] if device_mesh is None else axis_groups(device_mesh)
-        n = torch.tensor([float(ro.shape[0])], device=ro.device)
-        for g in groups:
-            n = all_reduce(n, g)
+        n = all_reduce(torch.tensor([float(ro.shape[0])], device=ro.device))
         names = _float_fields(scene)
         leaves = {k: getattr(scene, k).detach().requires_grad_(True)
                   for k in names}
@@ -388,16 +386,10 @@ def make_train_step(lr: float = 1e-2, device_mesh: DeviceMesh | None = None):
                            target, n_total=int(n.item()))
         grads = torch.autograd.grad(loss, list(leaves.values()),
                                     allow_unused=True)
-        new = {}
-        for k, g in zip(names, grads):
-            g = torch.zeros_like(leaves[k]) if g is None else g
-            for grp in groups:
-                g = all_reduce(g, grp)
-            new[k] = getattr(scene, k) - lr * g
-        total = loss.detach()
-        for grp in groups:
-            total = all_reduce(total, grp)
-        return dataclasses.replace(scene, **new), total
+        new = {k: getattr(scene, k) - lr * all_reduce(
+            torch.zeros_like(leaves[k]) if g is None else g)
+            for k, g in zip(names, grads)}
+        return dataclasses.replace(scene, **new), all_reduce(loss.detach())
 
     return train_step
 
@@ -406,11 +398,11 @@ def make_train_step(lr: float = 1e-2, device_mesh: DeviceMesh | None = None):
 
 def _rank_main(fn, args, rank, world, init, backend, device, timeout_s,
                out):
-    if device == "cpu":
+    if device.type == "cpu":
         torch.set_num_threads(1)
-        dev = torch.device("cpu")
+        dev = device
     else:
-        dev = torch.device(device, rank % torch.cuda.device_count())
+        dev = torch.device(device.type, rank % torch.cuda.device_count())
         torch.cuda.set_device(dev)
     dist.init_process_group(backend, init_method=init, world_size=world,
                             rank=rank,
@@ -420,20 +412,33 @@ def _rank_main(fn, args, rank, world, init, backend, device, timeout_s,
     dist.destroy_process_group()
 
 
-def launch(fn, world_size: int, *args, device: str = "cpu",
-           backend: str = "gloo", timeout_s: float = 600.0) -> list:
+def launch(fn, world_size: int, *args, device=None,
+           timeout_s: float = 600.0) -> list:
     """Run fn(rank_device, *args) on `world_size` ranks, one spawned
-    process each, joined in a process group over `backend` through a
-    file in a temporary directory (no port to collide on), and return the
-    ranks' results in rank order (torch.save'd; keep them on the CPU).
+    process each, joined in a process group through a file in a
+    temporary directory (no port to collide on), and return the ranks'
+    results in rank order (torch.save'd; keep them on the CPU).
 
-    device "cpu": every rank computes on the CPU with one thread (ranks
-    share the host's cores);
-    "cuda": rank r on card r % cards (two ranks may share one card, over
-    gloo: NCCL takes one card a rank). The kernels must be built before:
-    the ranks only load them. A rank that fails, or a group that outlives
-    `timeout_s`, fails the launch; every process is stopped before it
-    returns or raises. fn and args must pickle (fn at a module's top)."""
+    `device` is where the ranks compute: the card when None. On cards,
+    rank r computes on card r % cards; with no more ranks than cards the
+    transport is NCCL, else gloo (NCCL takes one card a rank, so two
+    ranks that share one card talk over the host). The kernels must be
+    built before: the ranks only load them. "cpu": every rank computes
+    on the CPU with one thread (ranks share the host's cores), over gloo.
+    A rank that fails, or a group that outlives `timeout_s`, fails the
+    launch; every process is stopped before it returns or raises. fn and
+    args must pickle (fn at a module's top)."""
+    from .. import default_device
+
+    device = default_device() if device is None else torch.device(device)
+    per_card = 1
+    if device.type == "cuda":
+        cards = torch.cuda.device_count()
+        if cards == 0:
+            raise RuntimeError("launch: no CUDA card; pass device='cpu' "
+                               "to run the ranks on the CPU")
+        per_card = -(-world_size // cards)
+    backend = _backend(device, per_card)
     ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="fembrain-ranks-") as tmp:
         init = (Path(tmp) / "rendezvous").as_uri()

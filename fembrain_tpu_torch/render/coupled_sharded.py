@@ -36,7 +36,6 @@ from ..fem.partitioned import (
 from ..parallel import sharding as sh
 from .deformed import (
     FIXED_POINT_ITERS,
-    WENDLAND_SIGMA_FILL,
     DispInterp,
     biharmonic_spec,
     build_disp_interp,
@@ -103,7 +102,7 @@ def disp_weights_from_partition(cs: CoupledSharded, q_p: torch.Tensor,
     q_p [Nl, 3]: the M center rows gathered across the ranks of
     `device_mesh` (the world without one), then the replicated factored
     solve."""
-    group = None if device_mesh is None else sh.axis_groups(device_mesh)[0]
+    group = None if device_mesh is None else device_mesh.get_group()
     u_c = _own_rows(q_p, cs.center_slot, cs.pm.part, group)
     return disp_weights_centers(cs.interp, u_c)
 
@@ -188,7 +187,6 @@ class CoupledGridSharded:
 def build_coupled_grid_sharded(grid, tm, n_parts: int, fixed_nodes=None,
                                n_centers: int | None = None,
                                kernel: str = "wendland", *,
-                               sigma_fill: float = WENDLAND_SIGMA_FILL,
                                part: int | None = None, device=None,
                                **material) -> CoupledGridSharded:
     """Host-side: build slab `part` of the X-slab grid FEM
@@ -202,7 +200,7 @@ def build_coupled_grid_sharded(grid, tm, n_parts: int, fixed_nodes=None,
     nodes = tm.nodes[: int(tm.n_nodes)].detach().cpu().numpy()
     interp = build_disp_interp(
         nodes, n_centers=n_centers, fixed=fixed_nodes, kernel=kernel,
-        sigma_fill=sigma_fill, device=device,
+        device=device,
     )
     # The shard layout [D, Xl, Y, Z] flattens to [D*Xl, Y, Z] with the
     # padding planes appended: the global flat vertex index carries over.
@@ -252,7 +250,7 @@ def coupled_step_grid_sharded(scene: Scene, cgs: CoupledGridSharded,
     and the trace applies its implicit correction, so a loss on t (the
     sum of the ranks' local losses) gives every rank the whole
     d(loss)/d(E_scale)."""
-    (group,) = sh.axis_groups(device_mesh)
+    group = device_mesh.get_group()
     sgf = cgs.sgf if E_scale is None else scale_grid_E(
         cgs.sgf, sh.replicated(E_scale, group))
     kw = {} if cg_tol is None else {"cg_tol": cg_tol}

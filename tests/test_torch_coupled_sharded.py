@@ -160,7 +160,8 @@ def ranks(brain):
     with .result()."""
     small = {k: v for k, v in brain.items() if not k.startswith("j")}
     with ThreadPoolExecutor(1) as pool:
-        yield pool.submit(sh.launch, _rank_checks, D, small)
+        yield pool.submit(sh.launch, _rank_checks, D, small,
+                          device="cpu")
 
 
 def _joined(rs, key):

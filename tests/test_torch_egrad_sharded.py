@@ -109,7 +109,8 @@ def _rank_checks(dev, b):
 def ranks(brain):  # noqa: F811
     small = {k: v for k, v in brain.items() if not k.startswith("j")}
     with ThreadPoolExecutor(1) as pool:
-        yield pool.submit(sh.launch, _rank_checks, D, small)
+        yield pool.submit(sh.launch, _rank_checks, D, small,
+                          device="cpu")
 
 
 def test_e_gradient_through_sharded_solve(brain, ranks):  # noqa: F811

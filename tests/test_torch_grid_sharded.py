@@ -92,8 +92,8 @@ def ranks(brain):
     """{D: the ranks' results} for D = 2 and 4, both groups launched at
     once; a test reads them with .result()."""
     with ThreadPoolExecutor(2) as pool:
-        yield {d: pool.submit(sh.launch, _rank_checks, d, brain, d)
-               for d in (2, 4)}
+        yield {d: pool.submit(sh.launch, _rank_checks, d, brain, d,
+                              device="cpu") for d in (2, 4)}
 
 
 def _global(ranks, d, key):

@@ -107,19 +107,22 @@ def _rank_checks(dev):
     out["grad"] = dict(g=float(scale.grad), it=it,
                        fd=float((lp - lm) / 0.002))
 
-    # fem.sharded: tets split, the state whole on every rank
+    # fem.sharded: tets split, the state whole on every rank; float32,
+    # then the same step in float64
     cn, ct = samples.truth_cube(4, 4, 4, 0.4)
     cn, ct = np.asarray(cn), np.asarray(ct)
-    mesh = build_fem_mesh(cn, ct, fixed=samples.bottom_nodes(cn), E=1e6,
-                          device=dev)
     tmesh = psh.make_tet_mesh_axis()
-    local = psh.place_sharded(psh.pad_mesh_for_sharding(mesh, D), tmesh)
-    f = torch.tensor(_gravity(len(cn), -500.0), device=dev)
-    sh.reset_counts()
-    st, it = psh.sharded_timestep(local, tmesh, pinteg.FemState.rest(mesh),
-                                  f, h=0.02)
-    out["sharded"] = dict(q=st.q.cpu(), qvel=st.qvel.cpu(), iters=it,
-                          counts=dict(sh.COUNTS), n_tets=local.n_tets)
+    for key, dtype in (("sharded", torch.float32),
+                       ("sharded64", torch.float64)):
+        mesh = build_fem_mesh(cn, ct, fixed=samples.bottom_nodes(cn),
+                              E=1e6, dtype=dtype, device=dev)
+        local = psh.place_sharded(psh.pad_mesh_for_sharding(mesh, D), tmesh)
+        f = torch.tensor(_gravity(len(cn), -500.0), dtype=dtype, device=dev)
+        sh.reset_counts()
+        st, it = psh.sharded_timestep(local, tmesh,
+                                      pinteg.FemState.rest(mesh), f, h=0.02)
+        out[key] = dict(q=st.q.cpu(), qvel=st.qvel.cpu(), iters=it,
+                        counts=dict(sh.COUNTS), n_tets=local.n_tets)
     return out
 
 
@@ -128,7 +131,7 @@ def ranks():
     """The ranks' results, launched in the background: a test reads them
     with .result()."""
     with ThreadPoolExecutor(1) as pool:
-        yield pool.submit(sh.launch, _rank_checks, D)
+        yield pool.submit(sh.launch, _rank_checks, D, device="cpu")
 
 
 def _stack(ranks, key, i=-1):
@@ -317,7 +320,8 @@ def test_sharded_tets_match_jax_and_single_device(ranks):
     """fem.sharded: each rank's half of the (padded) tets, the state
     replicated: equal on both ranks, to the JAX package's sharded step
     and to the single-device step; forces, K qvel, the diagonal and one
-    all_reduce per CG iteration."""
+    all_reduce per CG iteration; in float64 the CG counts equal."""
+    import jax
     import jax.numpy as jnp
 
     from fembrain_tpu.fem import integrator as jinteg
@@ -327,11 +331,19 @@ def test_sharded_tets_match_jax_and_single_device(ranks):
     cn, ct = samples.truth_cube(4, 4, 4, 0.4)
     cn, ct = np.asarray(cn), np.asarray(ct)
     f = _gravity(len(cn), -500.0)
-    jm = jbuild(cn, ct, fixed=samples.bottom_nodes(cn), E=1e6)
     dm = jsh.make_tet_mesh_axis(D)
-    jm_p = jsh.place_sharded(jsh.pad_mesh_for_sharding(jm, D), dm)
-    jst, jit = jsh.sharded_timestep(jm_p, dm, jinteg.FemState.rest(jm),
-                                    jnp.asarray(f), h=0.02)
+
+    def jax_step(dtype):
+        jm = jbuild(cn, ct, fixed=samples.bottom_nodes(cn), E=1e6,
+                    dtype=dtype)
+        jm_p = jsh.place_sharded(jsh.pad_mesh_for_sharding(jm, D), dm)
+        return jsh.sharded_timestep(jm_p, dm, jinteg.FemState.rest(jm),
+                                    jnp.asarray(f, dtype), h=0.02)
+
+    jst, jit = jax_step(jnp.float32)
+    with jax.enable_x64(True):
+        _, jit64 = jax_step(jnp.float64)
+        jit64 = int(jit64)
     r0, r1 = (r["sharded"] for r in ranks.result())
     np.testing.assert_array_equal(r0["q"].numpy(), r1["q"].numpy())
     assert r0["n_tets"] * D >= len(ct) and r0["iters"] == r1["iters"]
@@ -340,8 +352,11 @@ def test_sharded_tets_match_jax_and_single_device(ranks):
     np.testing.assert_allclose(r0["qvel"].numpy(), np.asarray(jst.qvel),
                                rtol=1e-4, atol=1e-6)
     # Point-Jacobi CG at tol 1e-6 on this cube: the JAX package counts 53
-    # at 1, 2, 4 and 8 devices, the port 51 in float32 and 49 in float64
-    # (the JAX package's float32 dots round more), so two apart.
+    # in float32 at 1, 2, 4 and 8 devices, the port 51. In float64 both
+    # count 49: the two algorithms agree and the float32 counts differ by
+    # rounding (the JAX package's float32 dots round more), so two apart.
+    r64 = ranks.result()[0]["sharded64"]
+    assert r64["iters"] == jit64, (r64["iters"], jit64)
     assert abs(r0["iters"] - int(jit)) <= 2, (r0["iters"], int(jit))
     mesh = build_fem_mesh(cn, ct, fixed=samples.bottom_nodes(cn), E=1e6,
                           device="cpu")

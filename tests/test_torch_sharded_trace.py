@@ -111,7 +111,7 @@ def _train_checks(dev):
     target = torch.tensor(_train_target(ro.shape[0]))
     ros, rds, tg = sh.shard_rays(mesh, ro, rd, target, device=dev)
     share = sh.render_loss(scene, ros, rds, tg)
-    new, loss = sh.make_train_step(LR, mesh)(scene, ros, rds, tg)
+    new, loss = sh.make_train_step(LR)(scene, ros, rds, tg)
     t, hit = tt.trace_tiles_sharded(scene, ro, rd, mesh, tile=TILE)
     single = tt.trace_tiles(scene, ro, rd, tile=TILE) if (
         sh.shard_index(mesh)[1] == 0) else None
@@ -126,8 +126,10 @@ def ranks():
     """{"trace": two ranks' results, "train": four ranks'}, both groups
     launched at once; a test reads them with .result()."""
     with ThreadPoolExecutor(2) as pool:
-        yield {"trace": pool.submit(sh.launch, _trace_checks, D),
-               "train": pool.submit(sh.launch, _train_checks, 4)}
+        yield {"trace": pool.submit(sh.launch, _trace_checks, D,
+                                      device="cpu"),
+               "train": pool.submit(sh.launch, _train_checks, 4,
+                                      device="cpu")}
 
 
 # The tests that compute the JAX reference come first: the ranks finish in
@@ -247,6 +249,14 @@ def test_initialize_distributed_is_a_no_op_for_one_process():
     assert sh.initialize_distributed() == 1
     assert sh.initialize_distributed(num_processes=1, process_id=0) == 1
     assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("device,per_card,backend", [
+    ("cpu", 1, "gloo"), ("cuda", 1, "nccl"), ("cuda", 2, "gloo")])
+def test_transport_follows_the_compute_device(device, per_card, backend):
+    """NCCL when every rank computes on a card of its own; gloo for CPU
+    ranks and for ranks that share a card (NCCL refuses them)."""
+    assert sh._backend(torch.device(device), per_card) == backend
 
 
 def test_pad_to_multiple_and_row_share():

@@ -37,11 +37,15 @@ from fembrain_tpu_torch.blob.scene import SceneDef
 from fembrain_tpu_torch.blob import sketch as psketch
 from fembrain_tpu_torch.fem import cutting as pcut
 from fembrain_tpu_torch.fem import grid_fem as pgfm
+from fembrain_tpu_torch.fem import grid_sharded as pgsh
 from fembrain_tpu_torch.fem import mass_spring as pms
+from fembrain_tpu_torch.fem import partitioned as ppt
 from fembrain_tpu_torch.fem import rigid as prigid
 from fembrain_tpu_torch.fem import tetmesh as ptet
 from fembrain_tpu_torch.ops import particles as ppart
 from fembrain_tpu_torch.ops import rbf as prbf
+from fembrain_tpu_torch.parallel import sharding as psh
+from fembrain_tpu_torch.render import coupled_sharded as pcs
 from fembrain_tpu_torch.render import deformed as pd
 from fembrain_tpu_torch.render import tile_trace as ptt
 from fembrain_tpu_torch.render.camera import Camera
@@ -244,6 +248,12 @@ _CONSTRUCTORS = [
     (prigid.RigidBody6State.at_rest, prigid.RigidBody6State.at_rest),
     (pms.make_dumbbell, pms.make_dumbbell),
     (ppart.init_particles, ppart.init_particles),
+    (psh.launch, psh.launch),
+    (psh.initialize_distributed, psh.initialize_distributed),
+    (ppt.build_partitioned, ppt.build_partitioned),
+    (pgsh.build_sharded_grid_fem, pgsh.build_sharded_grid_fem),
+    (pcs.build_coupled_sharded, ppt.build_partitioned),
+    (pcs.build_coupled_grid_sharded, pgsh.build_sharded_grid_fem),
 ] + [(f, convert._build) for f in (
     convert.scene, convert.tet_mesh, convert.grid_fem, convert.disp_interp,
     convert.fem_state, convert.fem_mesh_from_numpy,
@@ -392,9 +402,8 @@ def test_interaction_slice_module_matches_the_reference(ref_rel):
 # place_sharded slices the rank's block), the parameters it leaves out on purpose (they choose
 # between Pallas and XLA; the tensors' device chooses in the port), and
 # the trailing parameters the port may add: where a block lands
-# (`device`), which block a rank builds (`part`), the transport
-# (`backend`), the ranks a reduction spans (`device_mesh`), the global
-# ray count (`n_total`) and the Wendland support (`sigma_fill`).
+# (`device`), which block a rank builds (`part`), the ranks a reduction
+# spans (`device_mesh`) and the global ray count (`n_total`).
 _MULTI_DEVICE_SLICE = {
     "parallel/__init__.py": "parallel/__init__.py",
     "parallel/sharding.py": "parallel/sharding.py",
@@ -409,8 +418,7 @@ _MULTI_DEVICE_SLICE = {
 _MULTI_DEVICE_LEFT_OUT = {"graphics/materials.py": {"triplanar_sample_jax"},
                           "fem/sharded.py": {"_element_spec"}}
 _NOT_PORTED_PARAMS = {"interpret", "use_pallas", "tile_cond"}
-_ADDED_PARAMS = {"device", "part", "backend", "device_mesh", "n_total",
-                 "sigma_fill"}
+_ADDED_PARAMS = {"device", "part", "device_mesh", "n_total"}
 
 
 @pytest.mark.parametrize("ref_rel", sorted(_MULTI_DEVICE_SLICE))
