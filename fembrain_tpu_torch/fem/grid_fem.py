@@ -19,6 +19,7 @@ import torch
 from .. import default_device
 from ..mesh import tables as T
 from ..mesh.polygonize import GridSpec, TetMesh
+from ..utils.profiler import span
 from .integrator import (
     CG_MAX_ITERS,
     CG_TOL,
@@ -672,65 +673,71 @@ def timestep(
     state through one adjoint CG solve; the returned count is then -1, as
     in the reference, and `solve_stats` receives the forward and adjoint
     iteration counts. The preconditioner is not differentiated."""
-    free = gf.free[..., None]
+    with span("fem.step"):
+        free = gf.free[..., None]
+        m = gf.mass[..., None]
 
-    R = kinematics(gf, state.q)
-    f_int = internal_forces(gf, state.q, R)
-    m = gf.mass[..., None]
+        with span("fem.forces"):
+            R = kinematics(gf, state.q)
+            f_int = internal_forces(gf, state.q, R)
+            kq = stiffness_apply_rot(gf, R, state.qvel)
+            residual = -h * (
+                (h + damping_stiffness) * kq
+                + damping_mass * m * state.qvel
+                + f_int
+                - f_ext
+            )
+            residual = torch.where(free, residual, 0.0)
 
-    kq = stiffness_apply_rot(gf, R, state.qvel)
-    residual = -h * (
-        (h + damping_stiffness) * kq
-        + damping_mass * m * state.qvel
-        + f_int
-        - f_ext
-    )
-    residual = torch.where(free, residual, 0.0)
+        mass_coef = 1.0 + h * damping_mass
+        stiff_coef = h * damping_stiffness + h * h
 
-    mass_coef = 1.0 + h * damping_mass
-    stiff_coef = h * damping_stiffness + h * h
+        def operator(v, ke, rot):
+            g = gf if ke is gf.ke else dataclasses.replace(gf, ke=ke)
+            vf = torch.where(free, v, 0.0)
+            out = (mass_coef * m * vf
+                   + stiff_coef * stiffness_apply_rot(g, rot, vf))
+            return torch.where(free, out, v)
 
-    def operator(v, ke, rot):
-        g = gf if ke is gf.ke else dataclasses.replace(gf, ke=ke)
-        vf = torch.where(free, v, 0.0)
-        out = mass_coef * m * vf + stiff_coef * stiffness_apply_rot(g, rot, vf)
-        return torch.where(free, out, v)
+        with span("fem.precond_setup"):
+            if precond == "mg" and gf.levels:
+                pre_inv = None
+                if (
+                    gf.coarse_inv is not None
+                    and abs(mass_coef - gf.coarse_coefs[0]) < 1e-12
+                    and abs(stiff_coef - gf.coarse_coefs[1]) < 1e-12
+                ):
+                    pre_inv = gf.coarse_inv
+                setup = mg_setup(gf.levels, mass_coef, stiff_coef, pre_inv)
 
-    if precond == "mg" and gf.levels:
-        pre_inv = None
-        if (
-            gf.coarse_inv is not None
-            and abs(mass_coef - gf.coarse_coefs[0]) < 1e-12
-            and abs(stiff_coef - gf.coarse_coefs[1]) < 1e-12
-        ):
-            pre_inv = gf.coarse_inv
-        setup = mg_setup(gf.levels, mass_coef, stiff_coef, pre_inv)
+                def prec(r):
+                    return vcycle(gf.levels, mass_coef, stiff_coef, r, setup)
+            else:
+                mflat = gf.mass.reshape(-1)
+                eye = torch.eye(3, dtype=residual.dtype,
+                                device=residual.device)[..., None]
+                blocks = (mass_coef * mflat) * eye + stiff_coef * gf.kdiag
+                freef = gf.free.reshape(-1)[None, None]
+                inv_blocks = _inv3_cm(torch.where(freef, blocks, eye))
 
-        def prec(r):
-            return vcycle(gf.levels, mass_coef, stiff_coef, r, setup)
-    else:
-        mflat = gf.mass.reshape(-1)
-        eye = torch.eye(3, dtype=residual.dtype,
-                        device=residual.device)[..., None]
-        blocks = (mass_coef * mflat) * eye + stiff_coef * gf.kdiag
-        freef = gf.free.reshape(-1)[None, None]
-        inv_blocks = _inv3_cm(torch.where(freef, blocks, eye))
+                def prec(r):
+                    return _un_cm(_block_apply(inv_blocks, _cm(r)))
 
-        def prec(r):
-            return _un_cm(_block_apply(inv_blocks, _cm(r)))
-
-    if differentiable:
-        dv = symmetric_solve(
-            operator, residual, (gf.ke, R),
-            lambda mv, b: pcg(mv, b, prec, cg_tol, cg_max_iters), solve_stats,
-        )
-        iters = -1
-    else:
-        x0 = None if state.dv is None else torch.where(free, state.dv, 0.0)
-        dv, iters = pcg(lambda v: operator(v, gf.ke, R), residual, prec,
-                        cg_tol, cg_max_iters, x0=x0)
-        if solve_stats is not None:
-            solve_stats["forward_iters"] = iters
-    qvel = torch.where(free, state.qvel + dv, 0.0)
-    q = torch.where(free, state.q + h * qvel, 0.0)
+        with span("fem.solve"):
+            if differentiable:
+                dv = symmetric_solve(
+                    operator, residual, (gf.ke, R),
+                    lambda mv, b: pcg(mv, b, prec, cg_tol, cg_max_iters),
+                    solve_stats,
+                )
+                iters = -1
+            else:
+                x0 = (None if state.dv is None
+                      else torch.where(free, state.dv, 0.0))
+                dv, iters = pcg(lambda v: operator(v, gf.ke, R), residual,
+                                prec, cg_tol, cg_max_iters, x0=x0)
+                if solve_stats is not None:
+                    solve_stats["forward_iters"] = iters
+        qvel = torch.where(free, state.qvel + dv, 0.0)
+        q = torch.where(free, state.q + h * qvel, 0.0)
     return FemState(q=q, qvel=qvel, dv=dv), iters

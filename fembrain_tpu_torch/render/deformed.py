@@ -38,6 +38,7 @@ from ..blob.scene import Scene
 from ..graphics.materials import PHONG, Material
 from ..mesh.polygonize import GridSpec
 from ..ops.field import field, supports_rows_fast_path, vertex_attributes
+from ..utils.profiler import span
 from .camera import generate_rays
 from .sphere_trace import (
     TraceParams, _ray_box, march_all, newton_nudge, prim_interval,
@@ -637,11 +638,13 @@ def trace_deformed_rbf_fast(scene: Scene, interp: DispInterp,
         return trace_deformed_rbf(scene, interp, w, ro, rd, params, max_disp,
                                   fp_iters, bound_pts=bound_pts)
     wd = w.detach()
-    if interp.kind == "wendland":
-        disp = wendland_spec(interp, wd, k_refresh=k_refresh)
-    else:
-        shrink, slack = march_step_bounds(interp, wd, bound_pts)
-        disp = biharmonic_spec(interp, wd, shrink, slack, max_disp, fp_iters)
+    with span("coupling.spec"):
+        if interp.kind == "wendland":
+            disp = wendland_spec(interp, wd, k_refresh=k_refresh)
+        else:
+            shrink, slack = march_step_bounds(interp, wd, bound_pts)
+            disp = biharmonic_spec(interp, wd, shrink, slack, max_disp,
+                                   fp_iters)
     with torch.no_grad():
         if image_hw is not None:
             t_root, found = trace_tiles_image(scene, ro, rd, image_hw[0],
@@ -688,18 +691,20 @@ def coupled_step_fast(scene: Scene, fem_mesh, interp: DispInterp,
     the reference does; the CG iteration counts go to `solve_stats`."""
     from ..fem import integrator as integ
 
-    mesh2 = fem_mesh if E_scale is None else dataclasses.replace(
-        fem_mesh, ke=fem_mesh.ke * E_scale)
-    kw = {} if cg_tol is None else {"cg_tol": cg_tol}
-    new_state, _ = integ.timestep(mesh2, state, f_ext, h=h,
+    with span("frame"):
+        mesh2 = fem_mesh if E_scale is None else dataclasses.replace(
+            fem_mesh, ke=fem_mesh.ke * E_scale)
+        kw = {} if cg_tol is None else {"cg_tol": cg_tol}
+        new_state, _ = integ.timestep(mesh2, state, f_ext, h=h,
                                       differentiable=differentiable,
                                       solve_stats=solve_stats, **kw)
-    w = disp_weights(interp, new_state.q)
-    t, hit = trace_deformed_rbf_fast(
-        scene, interp, w, ro, rd, params, max_disp=max_disp,
-        image_hw=image_hw, fp_iters=fp_iters, need_grads=differentiable,
-        bound_pts=bound_pts, tile=tile, k_refresh=k_refresh,
-    )
+        with span("coupling.weights"):
+            w = disp_weights(interp, new_state.q)
+        t, hit = trace_deformed_rbf_fast(
+            scene, interp, w, ro, rd, params, max_disp=max_disp,
+            image_hw=image_hw, fp_iters=fp_iters, need_grads=differentiable,
+            bound_pts=bound_pts, tile=tile, k_refresh=k_refresh,
+        )
     return t, hit, new_state
 
 
@@ -752,19 +757,21 @@ def coupled_step_grid_fast(scene: Scene, gf, interp: DispInterp,
     (t, hit, new_state), as the reference does."""
     from ..fem import grid_fem as gfm
 
-    gf2 = gf if E_scale is None else dataclasses.replace(gf,
-                                                         ke=gf.ke * E_scale)
-    kw = {} if cg_tol is None else {"cg_tol": cg_tol}
-    new_state, _ = gfm.timestep(gf2, state, f_ext, h=h,
+    with span("frame"):
+        gf2 = gf if E_scale is None else dataclasses.replace(
+            gf, ke=gf.ke * E_scale)
+        kw = {} if cg_tol is None else {"cg_tol": cg_tol}
+        new_state, _ = gfm.timestep(gf2, state, f_ext, h=h,
                                     differentiable=differentiable,
                                     solve_stats=solve_stats, **kw)
-    u_c = new_state.q.reshape(-1, 3)[center_grid_idx]
-    w = disp_weights_centers(interp, u_c)
-    t, hit = trace_deformed_rbf_fast(
-        scene, interp, w, ro, rd, params, max_disp=max_disp,
-        image_hw=image_hw, fp_iters=fp_iters, need_grads=differentiable,
-        bound_pts=bound_pts, tile=tile, k_refresh=k_refresh,
-    )
+        with span("coupling.weights"):
+            u_c = new_state.q.reshape(-1, 3)[center_grid_idx]
+            w = disp_weights_centers(interp, u_c)
+        t, hit = trace_deformed_rbf_fast(
+            scene, interp, w, ro, rd, params, max_disp=max_disp,
+            image_hw=image_hw, fp_iters=fp_iters, need_grads=differentiable,
+            bound_pts=bound_pts, tile=tile, k_refresh=k_refresh,
+        )
     return t, hit, new_state
 
 

@@ -23,6 +23,7 @@ from ..blob.scene import Scene
 from ..blob.types import ISO_VALUE
 from ..graphics.materials import PHONG, Material, triplanar_sample_tensor
 from ..ops.field import field, vertex_attributes
+from ..utils.profiler import span
 from .camera import Camera, generate_rays
 
 
@@ -176,29 +177,30 @@ def newton_nudge(field_fn, ro, rd, t_root, found, cap):
     iso at x0 = ro + t0 rd. Only hit rays are corrected (misses return
     t0). Their correction runs in chunks of CORRECTION_CHUNK rays, each
     recomputed in backward, so memory stays bounded at any image size."""
-    t0 = t_root.detach()
-    idx = torch.nonzero(found).squeeze(-1)
-    if idx.numel() == 0:
-        return t0
-    x0 = ro[idx] + t0[idx, None] * rd[idx]
-    rdh = rd[idx].detach()
-    grad_on = torch.is_grad_enabled()
-    corr = []
-    for i in range(0, idx.numel(), CORRECTION_CHUNK):
-        x = x0[i : i + CORRECTION_CHUNK]
-        with torch.enable_grad():
-            p = x.detach().requires_grad_(True)
-            (g,) = torch.autograd.grad(field_fn(p).sum(), p)
-        dfdt = torch.sum(g * rdh[i : i + CORRECTION_CHUNK], -1)
-        dfdt = torch.where(torch.abs(dfdt) < 1e-6,
-                           torch.where(dfdt < 0, -1e-6, 1e-6), dfdt)
-        if grad_on and idx.numel() > CORRECTION_CHUNK:
-            f_at = torch.utils.checkpoint.checkpoint(field_fn, x,
-                                                     use_reentrant=False)
-        else:
-            f_at = field_fn(x)
-        corr.append(torch.clamp(f_at / dfdt, -cap, cap))
-    return t0.index_put((idx,), t0[idx] - torch.cat(corr))
+    with span("trace.correct"):
+        t0 = t_root.detach()
+        idx = torch.nonzero(found).squeeze(-1)
+        if idx.numel() == 0:
+            return t0
+        x0 = ro[idx] + t0[idx, None] * rd[idx]
+        rdh = rd[idx].detach()
+        grad_on = torch.is_grad_enabled()
+        corr = []
+        for i in range(0, idx.numel(), CORRECTION_CHUNK):
+            x = x0[i : i + CORRECTION_CHUNK]
+            with torch.enable_grad():
+                p = x.detach().requires_grad_(True)
+                (g,) = torch.autograd.grad(field_fn(p).sum(), p)
+            dfdt = torch.sum(g * rdh[i : i + CORRECTION_CHUNK], -1)
+            dfdt = torch.where(torch.abs(dfdt) < 1e-6,
+                               torch.where(dfdt < 0, -1e-6, 1e-6), dfdt)
+            if grad_on and idx.numel() > CORRECTION_CHUNK:
+                f_at = torch.utils.checkpoint.checkpoint(field_fn, x,
+                                                         use_reentrant=False)
+            else:
+                f_at = field_fn(x)
+            corr.append(torch.clamp(f_at / dfdt, -cap, cap))
+        return t0.index_put((idx,), t0[idx] - torch.cat(corr))
 
 
 def trace(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,

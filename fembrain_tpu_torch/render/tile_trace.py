@@ -53,6 +53,7 @@ from ..ops.field import (
 )
 from ..ops.warp import warp_components
 from ..parallel import sharding as sh
+from ..utils.profiler import span
 from .sphere_trace import (
     TraceParams, _ray_box, newton_nudge, prim_interval,
     support_radius_bound, trace,
@@ -573,109 +574,114 @@ def prepare_tiles(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
     """Pad the rays to whole tiles, bracket them, and build the per-tile
     flags and step rows one additive launch reads (the additive branch of
     the reference's trace_pallas, lines 845-1029)."""
-    if not is_additive_path(scene):
-        raise ValueError("the additive tile tracer takes additive scenes "
-                         "only; prepare_general takes the others")
-    dev = ro.device
-    if disp is not None:
-        max_disp = disp.max_disp
-    else:
-        max_disp = torch.zeros((), device=dev)
-    ro, rd = _pad_rays(ro, rd, tile)
-    tiles = ro.shape[0] // tile
-    t_enter, t_exit, alive0 = prim_interval(scene, ro, rd,
-                                            margin=0.05 + max_disp)
+    with span("trace.prepare"):
+        if not is_additive_path(scene):
+            raise ValueError("the additive tile tracer takes additive scenes "
+                             "only; prepare_general takes the others")
+        dev = ro.device
+        if disp is not None:
+            max_disp = disp.max_disp
+        else:
+            max_disp = torch.zeros((), device=dev)
+        ro, rd = _pad_rays(ro, rd, tile)
+        tiles = ro.shape[0] // tile
+        with span("trace.bracket"):
+            t_enter, t_exit, alive0 = prim_interval(scene, ro, rd,
+                                                    margin=0.05 + max_disp)
 
-    (prims, prim_boxes, prim_types, blk_lo, blk_hi, blk_stretch,
-     eff_types) = _additive_layout(scene)
-    # The deformed trace derives its base step from the max_disp-inflated
-    # bbox and tests deformed-space hulls against inflated block boxes.
-    lo = scene.bbox_lo - max_disp - 0.05
-    hi = scene.bbox_hi + max_disp + 0.05
-    base_step = torch.sqrt(torch.sum((hi - lo) ** 2)) * params.step_frac
-    hull_lo, hull_hi = _tile_hulls(ro, rd, t_enter, t_exit, alive0, tiles)
-    live = _hull_box_live(hull_lo, hull_hi, blk_lo - max_disp,
-                          blk_hi + max_disp)
-    tile_stretch = torch.amax(torch.where(live > 0, blk_stretch[None], 0.0), -1)
-    tile_inv = 1.0 / torch.clamp(tile_stretch, min=1e-6)
-    wend = bih = None
-    shrink_t = torch.ones_like(tile_inv)
-    slack_t = torch.zeros_like(tile_inv)
-    ldrift_t = torch.zeros_like(tile_inv)
-    if isinstance(disp, WendlandSpec):
-        # Per-tile deformed march bounds from the compact support: only
-        # center blocks whose sigma box touches the tile's inflated
-        # segment hull contribute; L and max|u| come from their sampled
-        # per-block maxima (x1.25 / x1.15), and outside every support box
-        # u is the affine tail, bounded over the hull box.
-        n_cb = disp.centers.shape[0] // CEN_BLOCK
-        cblk = disp.centers.reshape(n_cb, CEN_BLOCK, 3)
-        cb_lo = cblk.amin(1) - disp.sigma
-        cb_hi = cblk.amax(1) + disp.sigma
-        clive = _hull_box_live(hull_lo, hull_hi, cb_lo - max_disp,
-                               cb_hi + max_disp)
-        any_alive = alive0.reshape(tiles, -1).any(-1)
-        live_g = torch.amax(torch.where(clive > 0, disp.bg[None], 0.0), -1)
-        live_u = torch.amax(torch.where(clive > 0, disp.bu[None], 0.0), -1)
-        h_c = 0.5 * (hull_lo + hull_hi)
-        h_r = torch.linalg.norm(0.5 * (hull_hi - hull_lo), dim=-1) + max_disp
-        aff_c = disp.waff[:, 0][None] + h_c @ disp.waff[:, 1:4].T
-        aff_u = torch.linalg.norm(aff_c, dim=-1) + disp.bfr * h_r
-        l_tile = torch.maximum(1.25 * live_g, disp.bfr)
-        u_max = torch.maximum(1.15 * live_u, aff_u)
-        shrink_t = torch.where(any_alive, torch.clamp(1.0 - l_tile, 0.0, 1.0),
-                               1.0)
-        slack_t = torch.where(any_alive, 2.0 * u_max, 0.0)
-        ldrift_t = torch.where(any_alive, l_tile, 0.0)
-        wend = WendlandInputs(
-            centers=disp.centers.contiguous(),
-            w=disp.w.contiguous(),
-            waff=disp.waff.contiguous(),
-            clive=clive.contiguous(),
-            sigma=float(np.float32(disp.sigma)),
-            inv_sigma=float(np.float32(1.0 / disp.sigma)),
-            k_refresh=int(disp.k_refresh) or K_REFRESH,
-        )
-    elif isinstance(disp, BiharmonicSpec):
-        # Global (shrink, slack) on every tile; the hull cull tests the
-        # pulled-back rest points against the exact rest boxes.
-        m = disp.centers.shape[0]
-        shrink_t = torch.broadcast_to(disp.shrink, tile_inv.shape)
-        slack_t = torch.broadcast_to(disp.slack, tile_inv.shape)
-        bih = BiharmonicInputs(
-            centers=disp.centers.contiguous(),
-            w=disp.w[:m].contiguous(),
-            waff=disp.w[m:].T.contiguous(),
-            fp_iters=int(disp.fp_iters),
-        )
-    elif disp is not None:
-        raise TypeError(f"unknown displacement spec {type(disp).__name__}")
-    tile_rows = torch.stack([tile_inv, shrink_t, slack_t, ldrift_t], -1)
+        (prims, prim_boxes, prim_types, blk_lo, blk_hi, blk_stretch,
+         eff_types) = _additive_layout(scene)
+        # The deformed trace derives its base step from the max_disp-inflated
+        # bbox and tests deformed-space hulls against inflated block boxes.
+        lo = scene.bbox_lo - max_disp - 0.05
+        hi = scene.bbox_hi + max_disp + 0.05
+        base_step = torch.sqrt(torch.sum((hi - lo) ** 2)) * params.step_frac
+        hull_lo, hull_hi = _tile_hulls(ro, rd, t_enter, t_exit, alive0, tiles)
+        live = _hull_box_live(hull_lo, hull_hi, blk_lo - max_disp,
+                              blk_hi + max_disp)
+        tile_stretch = torch.amax(
+            torch.where(live > 0, blk_stretch[None], 0.0), -1)
+        tile_inv = 1.0 / torch.clamp(tile_stretch, min=1e-6)
+        wend = bih = None
+        shrink_t = torch.ones_like(tile_inv)
+        slack_t = torch.zeros_like(tile_inv)
+        ldrift_t = torch.zeros_like(tile_inv)
+        if isinstance(disp, WendlandSpec):
+            # Per-tile deformed march bounds from the compact support: only
+            # center blocks whose sigma box touches the tile's inflated
+            # segment hull contribute; L and max|u| come from their sampled
+            # per-block maxima (x1.25 / x1.15), and outside every support box
+            # u is the affine tail, bounded over the hull box.
+            n_cb = disp.centers.shape[0] // CEN_BLOCK
+            cblk = disp.centers.reshape(n_cb, CEN_BLOCK, 3)
+            cb_lo = cblk.amin(1) - disp.sigma
+            cb_hi = cblk.amax(1) + disp.sigma
+            clive = _hull_box_live(hull_lo, hull_hi, cb_lo - max_disp,
+                                   cb_hi + max_disp)
+            any_alive = alive0.reshape(tiles, -1).any(-1)
+            live_g = torch.amax(torch.where(clive > 0, disp.bg[None], 0.0), -1)
+            live_u = torch.amax(torch.where(clive > 0, disp.bu[None], 0.0), -1)
+            h_c = 0.5 * (hull_lo + hull_hi)
+            h_r = (torch.linalg.norm(0.5 * (hull_hi - hull_lo), dim=-1)
+                   + max_disp)
+            aff_c = disp.waff[:, 0][None] + h_c @ disp.waff[:, 1:4].T
+            aff_u = torch.linalg.norm(aff_c, dim=-1) + disp.bfr * h_r
+            l_tile = torch.maximum(1.25 * live_g, disp.bfr)
+            u_max = torch.maximum(1.15 * live_u, aff_u)
+            shrink_t = torch.where(
+                any_alive, torch.clamp(1.0 - l_tile, 0.0, 1.0), 1.0)
+            slack_t = torch.where(any_alive, 2.0 * u_max, 0.0)
+            ldrift_t = torch.where(any_alive, l_tile, 0.0)
+            wend = WendlandInputs(
+                centers=disp.centers.contiguous(),
+                w=disp.w.contiguous(),
+                waff=disp.waff.contiguous(),
+                clive=clive.contiguous(),
+                sigma=float(np.float32(disp.sigma)),
+                inv_sigma=float(np.float32(1.0 / disp.sigma)),
+                k_refresh=int(disp.k_refresh) or K_REFRESH,
+            )
+        elif isinstance(disp, BiharmonicSpec):
+            # Global (shrink, slack) on every tile; the hull cull tests the
+            # pulled-back rest points against the exact rest boxes.
+            m = disp.centers.shape[0]
+            shrink_t = torch.broadcast_to(disp.shrink, tile_inv.shape)
+            slack_t = torch.broadcast_to(disp.slack, tile_inv.shape)
+            bih = BiharmonicInputs(
+                centers=disp.centers.contiguous(),
+                w=disp.w[:m].contiguous(),
+                waff=disp.w[m:].T.contiguous(),
+                fp_iters=int(disp.fp_iters),
+            )
+        elif disp is not None:
+            raise TypeError(f"unknown displacement spec {type(disp).__name__}")
+        tile_rows = torch.stack([tile_inv, shrink_t, slack_t, ldrift_t], -1)
 
-    # Scenes with few real blocks evaluate every real block (the cull's
-    # reductions would cost more than it skips); others apply the static
-    # tile flags and cull per eval against the live lanes' hull.
-    real = torch.tensor([bool(t) for t in eff_types], device=dev)
-    dyn_cull = int(real.sum()) > 4
-    live = (live.bool() & real[None]) if dyn_cull else real[None].expand_as(live)
-    return TileInputs(
-        rays=_ray_rows(ro, rd, t_enter, t_exit, alive0),
-        live=live.to(torch.int32).contiguous(),
-        tile_rows=tile_rows.contiguous(),
-        prims=prims,
-        prim_boxes=prim_boxes.contiguous(),
-        prim_types=prim_types,
-        block_types=eff_types,
-        tile=tile,
-        dyn_cull=dyn_cull,
-        iso=float(params.iso),
-        r_iso=params.r_iso,
-        base_step=float(base_step),
-        max_steps=int(params.max_steps),
-        bisect_steps=int(params.bisect_steps),
-        wendland=wend,
-        biharmonic=bih,
-    )
+        # Scenes with few real blocks evaluate every real block (the cull's
+        # reductions would cost more than it skips); others apply the static
+        # tile flags and cull per eval against the live lanes' hull.
+        real = torch.tensor([bool(t) for t in eff_types], device=dev)
+        dyn_cull = int(real.sum()) > 4
+        live = ((live.bool() & real[None]) if dyn_cull
+                else real[None].expand_as(live))
+        return TileInputs(
+            rays=_ray_rows(ro, rd, t_enter, t_exit, alive0),
+            live=live.to(torch.int32).contiguous(),
+            tile_rows=tile_rows.contiguous(),
+            prims=prims,
+            prim_boxes=prim_boxes.contiguous(),
+            prim_types=prim_types,
+            block_types=eff_types,
+            tile=tile,
+            dyn_cull=dyn_cull,
+            iso=float(params.iso),
+            r_iso=params.r_iso,
+            base_step=float(base_step),
+            max_steps=int(params.max_steps),
+            bisect_steps=int(params.bisect_steps),
+            wendland=wend,
+            biharmonic=bih,
+        )
 
 
 def prepare_general(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
@@ -685,95 +691,102 @@ def prepare_general(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
     (K3) launch (the general branch of the reference's trace_pallas): the
     bracket is `prim_interval` where the prim support boxes bound the
     field, else the scene slab with margin 0.05, zeroed on dead rays."""
-    if not supports_rows_fast_path(scene):
-        raise ValueError(
-            f"the general tile trace unrolls at most {UNROLL_LIMIT} ops, the "
-            f"scene schedules {len(scene.schedule)}; use sphere_trace.trace")
-    dev = ro.device
-    ro, rd = _pad_rays(ro, rd, tile)
-    lo = scene.bbox_lo - 0.05
-    hi = scene.bbox_hi + 0.05
-    if scene.can_cull:
-        t_enter, t_exit, alive0 = prim_interval(scene, ro, rd, margin=0.05)
-    else:
-        t_enter, t_exit = _ray_box(ro, rd, lo[None], hi[None])
-        alive0 = t_exit > t_enter
-        t_enter = torch.where(alive0, t_enter, 0.0)
-        t_exit = torch.where(alive0, t_exit, 0.0)
+    with span("trace.prepare"):
+        if not supports_rows_fast_path(scene):
+            raise ValueError(
+                f"the general tile trace unrolls at most {UNROLL_LIMIT} ops, "
+                f"the scene schedules {len(scene.schedule)}; use "
+                "sphere_trace.trace")
+        dev = ro.device
+        ro, rd = _pad_rays(ro, rd, tile)
+        lo = scene.bbox_lo - 0.05
+        hi = scene.bbox_hi + 0.05
+        if scene.can_cull:
+            with span("trace.bracket"):
+                t_enter, t_exit, alive0 = prim_interval(scene, ro, rd,
+                                                        margin=0.05)
+        else:
+            t_enter, t_exit = _ray_box(ro, rd, lo[None], hi[None])
+            alive0 = t_exit > t_enter
+            t_enter = torch.where(alive0, t_enter, 0.0)
+            t_exit = torch.where(alive0, t_exit, 0.0)
 
-    # The op fold as register steps in schedule order (the scene's fold
-    # plan); a range step carries its prim span instead of a range slot.
-    steps = []
-    for op_idx, otype, dst, lk, li, rk, ri in scene.fold_plan:
-        if lk == SRC_RANGE:
-            w = scene.wiring[op_idx]
-            li, ri = w.left, w.right
-        steps.append((otype, dst, lk, li, rk, ri))
-    if not steps:
-        steps = [(0, 0, 0, 0, 0, 0)]
-    sched = [p[0] for p in scene.fold_plan] or [0]
-    step_params = scene.op_params[torch.tensor(sched, device=dev)][:, :2]
+        # The op fold as register steps in schedule order (the scene's fold
+        # plan); a range step carries its prim span instead of a range slot.
+        steps = []
+        for op_idx, otype, dst, lk, li, rk, ri in scene.fold_plan:
+            if lk == SRC_RANGE:
+                w = scene.wiring[op_idx]
+                li, ri = w.left, w.right
+            steps.append((otype, dst, lk, li, rk, ri))
+        if not steps:
+            steps = [(0, 0, 0, 0, 0, 0)]
+        sched = [p[0] for p in scene.fold_plan] or [0]
+        step_params = scene.op_params[torch.tensor(sched, device=dev)][:, :2]
 
-    # Warp chains per group, root-first, with their op's parameters.
-    P = scene.capacity_prims
-    group = torch.zeros(P, dtype=torch.int64, device=dev)
-    chain_len = max(1, max(len(c) for c, _ in scene.warp_groups))
-    warps = torch.zeros((len(scene.warp_groups) * chain_len, WARP_ROW),
-                        device=dev)
-    warps[:, 0] = -1.0
-    for g, (chain, prim_idx) in enumerate(scene.warp_groups):
-        if prim_idx:
-            group[list(prim_idx)] = g
-        for j, wire in enumerate(chain):
-            row = g * chain_len + j
-            warps[row, :3] = torch.tensor(
-                [wire.wtype, wire.axis_a, wire.axis_b], dtype=torch.float32)
-            warps[row, 4:] = scene.op_params[wire.op_idx]
-    prims = _prim_rows(scene.prim_mtx, scene.prim_pos, scene.prim_dir,
-                       scene.prim_res, scene.prim_type, group)
-    base_step = torch.sqrt(torch.sum((hi - lo) ** 2)) * params.step_frac
+        # Warp chains per group, root-first, with their op's parameters.
+        P = scene.capacity_prims
+        group = torch.zeros(P, dtype=torch.int64, device=dev)
+        chain_len = max(1, max(len(c) for c, _ in scene.warp_groups))
+        warps = torch.zeros((len(scene.warp_groups) * chain_len, WARP_ROW),
+                            device=dev)
+        warps[:, 0] = -1.0
+        for g, (chain, prim_idx) in enumerate(scene.warp_groups):
+            if prim_idx:
+                group[list(prim_idx)] = g
+            for j, wire in enumerate(chain):
+                row = g * chain_len + j
+                warps[row, :3] = torch.tensor(
+                    [wire.wtype, wire.axis_a, wire.axis_b],
+                    dtype=torch.float32)
+                warps[row, 4:] = scene.op_params[wire.op_idx]
+        prims = _prim_rows(scene.prim_mtx, scene.prim_pos, scene.prim_dir,
+                           scene.prim_res, scene.prim_type, group)
+        base_step = torch.sqrt(torch.sum((hi - lo) ** 2)) * params.step_frac
 
-    # Per-tile prim flags. A prim's field is exactly 0 outside its support
-    # box whatever op consumes it, and every point the march evaluates for
-    # a live ray lies in the tile's segment hull: a prim under no warp is
-    # dead on a tile whose hull misses its box. Warped prims see moved
-    # points and stay always live; padding rows are dead.
-    tiles = ro.shape[0] // tile
-    hull_lo, hull_hi = _tile_hulls(ro, rd, t_enter, t_exit, alive0, tiles)
-    boxed = torch.zeros(P, dtype=torch.bool, device=dev)
-    for chain, prim_idx in scene.warp_groups:
-        if not chain and prim_idx:
-            boxed[list(prim_idx)] = True
-    real = torch.arange(P, device=dev) < scene.n_prims
-    live = torch.where(
-        boxed[None],
-        _hull_box_live(hull_lo, hull_hi, scene.prim_bb_lo, scene.prim_bb_hi),
-        LIVE_ALWAYS)
-    live = torch.where(real[None], live, LIVE_DEAD).to(torch.int32)
-    return GeneralInputs(
-        rays=_ray_rows(ro, rd, t_enter, t_exit, alive0),
-        prims=prims,
-        steps=torch.tensor(steps, dtype=torch.int32, device=dev),
-        step_params=step_params.float().contiguous(),
-        warps=warps.contiguous(),
-        live=live.contiguous(),
-        boxes=torch.cat([scene.prim_bb_lo, scene.prim_bb_hi], 1).contiguous(),
-        scene=scene,
-        tile=tile,
-        n_real=scene.n_prims,
-        n_groups=len(scene.warp_groups),
-        chain_len=chain_len,
-        n_regs=scene.fold_registers,
-        root_reg=scene.root_reg,
-        root_is_op=bool(scene.root_is_op),
-        adaptive=bool(scene.monotone_field),
-        iso=float(params.iso),
-        r_iso=params.r_iso,
-        base_step=float(base_step),
-        inv_stretch=1.0 / max(scene.max_world_to_local_scale, 1e-6),
-        max_steps=int(params.max_steps),
-        bisect_steps=int(params.bisect_steps),
-    )
+        # Per-tile prim flags. A prim's field is exactly 0 outside its support
+        # box whatever op consumes it, and every point the march evaluates for
+        # a live ray lies in the tile's segment hull: a prim under no warp is
+        # dead on a tile whose hull misses its box. Warped prims see moved
+        # points and stay always live; padding rows are dead.
+        tiles = ro.shape[0] // tile
+        hull_lo, hull_hi = _tile_hulls(ro, rd, t_enter, t_exit, alive0, tiles)
+        boxed = torch.zeros(P, dtype=torch.bool, device=dev)
+        for chain, prim_idx in scene.warp_groups:
+            if not chain and prim_idx:
+                boxed[list(prim_idx)] = True
+        real = torch.arange(P, device=dev) < scene.n_prims
+        live = torch.where(
+            boxed[None],
+            _hull_box_live(hull_lo, hull_hi, scene.prim_bb_lo,
+                           scene.prim_bb_hi),
+            LIVE_ALWAYS)
+        live = torch.where(real[None], live, LIVE_DEAD).to(torch.int32)
+        return GeneralInputs(
+            rays=_ray_rows(ro, rd, t_enter, t_exit, alive0),
+            prims=prims,
+            steps=torch.tensor(steps, dtype=torch.int32, device=dev),
+            step_params=step_params.float().contiguous(),
+            warps=warps.contiguous(),
+            live=live.contiguous(),
+            boxes=torch.cat([scene.prim_bb_lo, scene.prim_bb_hi],
+                            1).contiguous(),
+            scene=scene,
+            tile=tile,
+            n_real=scene.n_prims,
+            n_groups=len(scene.warp_groups),
+            chain_len=chain_len,
+            n_regs=scene.fold_registers,
+            root_reg=scene.root_reg,
+            root_is_op=bool(scene.root_is_op),
+            adaptive=bool(scene.monotone_field),
+            iso=float(params.iso),
+            r_iso=params.r_iso,
+            base_step=float(base_step),
+            inv_stretch=1.0 / max(scene.max_world_to_local_scale, 1e-6),
+            max_steps=int(params.max_steps),
+            bisect_steps=int(params.bisect_steps),
+        )
 
 
 # ----------------------------------------------------------- the kernels
@@ -1262,18 +1275,20 @@ def trace_tiles_general_plain(inp: GeneralInputs,
 
 def run_tiles(inp: TileInputs | GeneralInputs):
     """The kernel on a CUDA tensor, its plain version on a CPU tensor."""
-    general = isinstance(inp, GeneralInputs)
-    if inp.rays.is_cuda:
-        return trace_general_cuda(inp) if general else trace_additive_cuda(inp)
-    if inp.rays.device.type != "cpu":
-        raise ValueError(f"no tile tracer for device {inp.rays.device}")
-    if general:
-        return trace_tiles_general_plain(inp)
-    if inp.wendland is not None:
-        return trace_tiles_wendland_plain(inp)
-    if inp.biharmonic is not None:
-        return trace_tiles_biharmonic_plain(inp)
-    return trace_tiles_plain(inp)
+    with span("trace.kernel"):
+        general = isinstance(inp, GeneralInputs)
+        if inp.rays.is_cuda:
+            return (trace_general_cuda(inp) if general
+                    else trace_additive_cuda(inp))
+        if inp.rays.device.type != "cpu":
+            raise ValueError(f"no tile tracer for device {inp.rays.device}")
+        if general:
+            return trace_tiles_general_plain(inp)
+        if inp.wendland is not None:
+            return trace_tiles_wendland_plain(inp)
+        if inp.biharmonic is not None:
+            return trace_tiles_biharmonic_plain(inp)
+        return trace_tiles_plain(inp)
 
 
 def trace_tiles(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
@@ -1282,6 +1297,11 @@ def trace_tiles(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
     """Forward tile trace (raw hit parameters): ro, rd [N, 3] ->
     (t [N], hit [N] bool), t = t_exit on a miss. Additive scenes take the
     additive kernel (deformed with `disp`), all others the general one."""
+    with span("trace"):
+        return _trace_tiles(scene, ro, rd, params, tile, disp)
+
+
+def _trace_tiles(scene, ro, rd, params, tile, disp):
     n = ro.shape[0]
     if is_additive_path(scene):
         inp = prepare_tiles(scene, ro, rd, params, tile, disp)
@@ -1368,10 +1388,11 @@ def trace_tiles_image(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
                       disp: WendlandSpec | BiharmonicSpec | None = None):
     """trace_tiles over a row-major H x W ray grid, one pixel block per
     tile, results mapped back to row-major order."""
-    ro_b, rd_b, from_blocks = image_rays_to_blocks(ro, rd, height, width,
-                                                   tile)
-    t_b, hit_b = trace_tiles(scene, ro_b, rd_b, params, tile, disp)
-    return from_blocks(t_b), from_blocks(hit_b)
+    with span("trace"):
+        ro_b, rd_b, from_blocks = image_rays_to_blocks(ro, rd, height,
+                                                       width, tile)
+        t_b, hit_b = _trace_tiles(scene, ro_b, rd_b, params, tile, disp)
+        return from_blocks(t_b), from_blocks(hit_b)
 
 
 def _trace_share(scene, ro, rd, device_mesh, axis, params, tile, disp):

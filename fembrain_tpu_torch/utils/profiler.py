@@ -1,37 +1,62 @@
 """Profiler (reference `Profiler` singleton + RAII ProfileAutoEvent,
 src/base/Profiler.h:25-138): named timing sessions aggregating avg/low/high,
-text or JSONL output, plus a hook into torch.profiler traces.
+stage spans in torch.profiler traces, and a hook that records such a
+trace.
 
-Counterpart of fembrain_tpu/utils/profiler.py. Work on the card is queued
-asynchronously, so a wall time of it needs a synchronisation at its end;
-`timed_readback` wraps that pattern.
+Counterpart of fembrain_tpu/utils/profiler.py. `Profiler.event` times a
+block on the host clock: work on the card is queued asynchronously, so
+that is the time to enqueue it unless the block itself synchronises.
+`span` names a stage in the trace of a running torch.profiler, on the
+clock of its device events; with no profile recording it does nothing.
 """
 from __future__ import annotations
 
 import contextlib
-import dataclasses
-import json
 import os
 import time
 from collections import defaultdict
 from pathlib import Path
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A stage of the program, `with span("fem.step"): ...`: a host range
+    named `name` in the trace while a profile records, else a shared
+    no-op context. It adds no synchronise, no event and no tensor, so the
+    work it wraps runs as it would without it.
+
+    The range is a function-scope record (`_RecordFunctionFast`), not a
+    user annotation (`torch.profiler.record_function`): Kineto gives each
+    user annotation a device-side twin typed as a CUDA event, which a
+    reader of the device's operations would count as a kernel launch and
+    as busy time. Kernels still link to their stage through the host
+    tree: each carries the correlation id of the innermost host range
+    that launched it."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _RecordFunctionFast(name)
 
 
 class _Event:
-    """One timing block: appends its seconds to `samples` on exit, also
-    when the block raises."""
+    """One timing block: appends its host seconds to `samples` on exit,
+    also when the block raises, and opens `span(name)` around it."""
 
-    def __init__(self, samples: list[float]):
-        self.samples = samples
+    def __init__(self, name: str, samples: list[float]):
+        self.name, self.samples = name, samples
 
     def __enter__(self):
+        self.span = span(self.name)
+        self.span.__enter__()
         self.t0 = time.perf_counter()
 
     def __exit__(self, *exc):
         self.samples.append(time.perf_counter() - self.t0)
-        return False
+        return self.span.__exit__(*exc)
 
 
 class Profiler:
@@ -39,8 +64,9 @@ class Profiler:
         self._samples: dict[str, list[float]] = defaultdict(list)
 
     def event(self, name: str) -> _Event:
-        """RAII-style timing block (reference ProfileAutoEvent)."""
-        return _Event(self._samples[name])
+        """RAII-style timing block (reference ProfileAutoEvent) and a
+        span of the same name."""
+        return _Event(name, self._samples[name])
 
     def add(self, name: str, seconds: float) -> None:
         self._samples[name].append(seconds)
@@ -56,55 +82,15 @@ class Profiler:
             }
         return out
 
-    def write_text(self, path: str | Path) -> None:
-        lines = [
-            f"{name}: n={s['count']} avg={s['avg_ms']:.3f}ms "
-            f"low={s['low_ms']:.3f}ms high={s['high_ms']:.3f}ms"
-            for name, s in self.stats().items()
-        ]
-        Path(path).write_text("\n".join(lines) + "\n")
-
-    def write_jsonl(self, path: str | Path) -> None:
-        with open(path, "a") as fh:
-            for name, s in self.stats().items():
-                fh.write(json.dumps({"event": name, **s}) + "\n")
-
     def reset(self) -> None:
         self._samples.clear()
-
-
-def _tensors(x):
-    """The tensors in a nest of tuples, lists, dicts and dataclasses."""
-    if isinstance(x, torch.Tensor):
-        yield x
-    elif dataclasses.is_dataclass(x) and not isinstance(x, type):
-        for f in dataclasses.fields(x):
-            yield from _tensors(getattr(x, f.name))
-    elif isinstance(x, (tuple, list)):
-        for v in x:
-            yield from _tensors(v)
-    elif isinstance(x, dict):
-        for v in x.values():
-            yield from _tensors(v)
-
-
-def timed_readback(fn, *args) -> tuple[float, object]:
-    """Run fn(*args) and return (seconds, output); when an output tensor
-    lies on the card, the time ends with `torch.cuda.synchronize()`, so it
-    covers the device work and not only its launch."""
-    t0 = time.perf_counter()
-    out = fn(*args)
-    cuda = {t.device for t in _tensors(out) if t.is_cuda}
-    for device in cuda:
-        torch.cuda.synchronize(device)
-    return time.perf_counter() - t0, out
 
 
 @contextlib.contextmanager
 def xprof_trace(logdir: str | Path):
     """torch.profiler trace of the block (the `--xprof` CLI flag uses
-    this): CPU activity, and the card's where there is one, written as a
-    Chrome trace JSON into `logdir`."""
+    this): CPU activity and the spans, and the card's where there is one,
+    written as a Chrome trace JSON into `logdir`."""
     out = Path(logdir)
     out.mkdir(parents=True, exist_ok=True)
     with torch.profiler.profile() as prof:

@@ -277,7 +277,8 @@ def test_constructors_default_to_the_card(ctor, resolver):
 # The app slice's file pairs, and the reference's top-level names each
 # leaves out on purpose: `field_jit` is jax.jit of `field`;
 # `enable_compilation_cache` is XLA's cache; `_HI` is JAX's matmul
-# precision (TF32 stays off package-wide instead).
+# precision (TF32 stays off package-wide instead); `timed_readback` had
+# no caller in the port (stages are timed by `span` in a profile).
 _APP_SLICE = ("app.py", "blob/writer.py", "graphics/scenegraph.py",
               "mesh/samples.py", "ops/field.py", "ops/field_ref.py",
               "ops/rbf.py", "render/deformed.py", "render/viewer.py",
@@ -285,7 +286,8 @@ _APP_SLICE = ("app.py", "blob/writer.py", "graphics/scenegraph.py",
               "utils/metrics.py", "utils/plots.py", "utils/profiler.py")
 _LEFT_OUT = {"ops/field.py": {"field_jit"},
              "utils/checkpoint.py": {"enable_compilation_cache"},
-             "render/deformed.py": {"_HI"}}
+             "render/deformed.py": {"_HI"},
+             "utils/profiler.py": {"timed_readback"}}
 
 
 def _top_level_names(path):

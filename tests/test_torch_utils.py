@@ -126,8 +126,8 @@ def test_write_gnuplot_matches_jax(tmp_path):
 
 def test_profiler_events_and_trace(tmp_path):
     """Timing blocks aggregate count/avg/low/high (also for a block that
-    raises); `timed_readback` returns the time and the output; the
-    `--xprof` context writes a Chrome trace JSON into its directory."""
+    raises); the `--xprof` context writes a Chrome trace JSON into its
+    directory."""
     prof = pprof.Profiler()
     with prof.event("work"):
         time.sleep(0.01)
@@ -136,17 +136,11 @@ def test_profiler_events_and_trace(tmp_path):
             raise ValueError
     s = prof.stats()["work"]
     assert s["count"] == 2 and s["high_ms"] >= 9.0 and s["low_ms"] < 9.0
-    prof.write_text(tmp_path / "p.txt")
-    assert (tmp_path / "p.txt").read_text().startswith("work: n=2 ")
-    prof.write_jsonl(tmp_path / "p.jsonl")
-    assert json.loads((tmp_path / "p.jsonl").read_text())["count"] == 2
     prof.reset()
     assert prof.stats() == {}
     assert pprof.the_profiler() is pprof.the_profiler()
 
     x = torch.ones(64, 64)
-    sec, out = pprof.timed_readback(lambda a: {"y": (a @ a, None)}, x)
-    assert sec > 0 and float(out["y"][0][0, 0]) == 64.0
     with pprof.xprof_trace(tmp_path / "trace"):
         (x @ x).sum()
     traces = list((tmp_path / "trace").glob("*.json"))
