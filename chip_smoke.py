@@ -546,6 +546,7 @@ def main_path_phase(root, device, params, tag, log):
     )
 
     tt.reset_launch_counts()
+    gfm.reset_cg_graph_counts()
     t_main = time.perf_counter()
     frame = build_frame(root, device, log)
     scene, gf, interp = frame["scene"], frame["gf"], frame["interp"]
@@ -568,7 +569,7 @@ def main_path_phase(root, device, params, tag, log):
     run_ms, _ = sync_ms(lambda: tt.run_tiles(rest_inp), reps=N_FRAMES)
     del rest_inp
     state = st0
-    cg_iters = []
+    cg_iters, cg_graphed = [], []
 
     def coupled():
         nonlocal state
@@ -579,6 +580,7 @@ def main_path_phase(root, device, params, tag, log):
             solve_stats=stats,
         )
         cg_iters.append(stats["forward_iters"])
+        cg_graphed.append(stats["graphed_iters"])
         return t, hit
 
     frame_ms, (t_def, hit_def) = sync_ms(coupled, reps=N_FRAMES)
@@ -611,6 +613,11 @@ def main_path_phase(root, device, params, tag, log):
              "trace_additive_wendland": len(cg_iters) + N_FRAMES}
 
     log(f"launches in the main path: {launches}, steps {steps}")
+    share = sum(cg_graphed) / sum(cg_iters)
+    log(f"CG graphs in the main path: {dict(gfm.CG_GRAPH)}; graphed share "
+        f"of the coupled frames' CG iterations {share:.4f}")
+    if share != 1.0:
+        raise AssertionError("the coupled frames' CG ran outside its graphs")
     for name in ("trace_additive_rest", "trace_additive_wendland"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched by the main path")

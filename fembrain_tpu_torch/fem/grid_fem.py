@@ -11,6 +11,7 @@ geometric multigrid V-cycle preconditions CG.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -28,6 +29,8 @@ from .integrator import (
     DEFAULT_TIMESTEP,
     FemState,
     pcg,
+    pcg_start,
+    pcg_update,
     symmetric_solve,
 )
 from .tetmesh import DEFAULT_E, DEFAULT_NU, DEFAULT_RHO, _element_stiffness
@@ -650,6 +653,235 @@ def grid_fem_from_tetmesh(
 
 # ------------------------------------------------------------- timestep
 
+def _forces(gf: GridFem, state: FemState, f_ext, h, damping_mass,
+            damping_stiffness):
+    """The step's rotations R [6,3,3,C] and the solve's right side."""
+    free = gf.free[..., None]
+    R = kinematics(gf, state.q)
+    f_int = internal_forces(gf, state.q, R)
+    kq = stiffness_apply_rot(gf, R, state.qvel)
+    residual = -h * (
+        (h + damping_stiffness) * kq
+        + damping_mass * gf.mass[..., None] * state.qvel
+        + f_int
+        - f_ext
+    )
+    return R, torch.where(free, residual, 0.0)
+
+
+def _operator(gf: GridFem, mass_coef, stiff_coef):
+    """The step's operator (v, ke, R) -> (mass_coef M + stiff_coef K_rot) v,
+    identity on fixed nodes."""
+    free = gf.free[..., None]
+    m = gf.mass[..., None]
+
+    def operator(v, ke, rot):
+        g = gf if ke is gf.ke else dataclasses.replace(gf, ke=ke)
+        vf = torch.where(free, v, 0.0)
+        out = mass_coef * m * vf + stiff_coef * stiffness_apply_rot(g, rot, vf)
+        return torch.where(free, out, v)
+
+    return operator
+
+
+def _preconditioner(gf: GridFem, precond, mass_coef, stiff_coef):
+    """r -> M^-1 r: the multigrid V-cycle (precond "mg" with levels) or
+    block-Jacobi on the 3x3 diagonal blocks of the linear stiffness, with
+    its set-up computed here."""
+    if precond == "mg" and gf.levels:
+        pre_inv = None
+        if (
+            gf.coarse_inv is not None
+            and abs(mass_coef - gf.coarse_coefs[0]) < 1e-12
+            and abs(stiff_coef - gf.coarse_coefs[1]) < 1e-12
+        ):
+            pre_inv = gf.coarse_inv
+        setup = mg_setup(gf.levels, mass_coef, stiff_coef, pre_inv)
+
+        def prec(r):
+            return vcycle(gf.levels, mass_coef, stiff_coef, r, setup)
+    else:
+        mflat = gf.mass.reshape(-1)
+        eye = torch.eye(3, dtype=mflat.dtype, device=mflat.device)[..., None]
+        blocks = (mass_coef * mflat) * eye + stiff_coef * gf.kdiag
+        freef = gf.free.reshape(-1)[None, None]
+        inv_blocks = _inv3_cm(torch.where(freef, blocks, eye))
+
+        def prec(r):
+            return _un_cm(_block_apply(inv_blocks, _cm(r)))
+    return prec
+
+
+def _advance(gf: GridFem, state: FemState, dv, h) -> FemState:
+    free = gf.free[..., None]
+    qvel = torch.where(free, state.qvel + dv, 0.0)
+    q = torch.where(free, state.q + h * qvel, 0.0)
+    return FemState(q=q, qvel=qvel, dv=dv)
+
+
+# ------------------------------------------------- the graphed grid solve
+
+# Captures of a graphed solve (one a cache key: its prologue and its
+# iteration) and replays of its iteration graph, in this process.
+CG_GRAPH = {"captures": 0, "replays": 0}
+
+# The graphed solves by cg_graph_key, least recently used first.
+_CG_CACHE: collections.OrderedDict = collections.OrderedDict()
+_CG_CACHE_SIZE = 4
+
+
+def reset_cg_graph_counts() -> None:
+    for k in CG_GRAPH:
+        CG_GRAPH[k] = 0
+
+
+def cg_graph_key(gf: GridFem, mass_coef, stiff_coef, precond, b,
+                 warm) -> tuple:
+    """What a graphed solve is captured for: the mesh by the identity of
+    its multigrid levels and of the fine-level arrays the operator and
+    the preconditioner read (built together by `build_grid_fem`), its
+    dims, dtype and device, the step's coefficients, the preconditioner,
+    whether CG starts warm, and the memory layout (strides) of the right
+    side b, which fixes the order in which pcg's dots sum. Not the
+    GridFem: a frame that scales its stiffness
+    (`dataclasses.replace(gf, ke=...)`) keeps all of these, and the solve
+    copies ke, R, b and x0 in."""
+    kind = "mg" if precond == "mg" and gf.levels else "block_jacobi"
+    arrays = (gf.cellw, gf.free, gf.mass, gf.kdiag, gf.coarse_inv)
+    return (id(gf.levels), tuple(id(a) for a in arrays), gf.dims,
+            gf.mass.dtype, gf.mass.device, float(mass_coef),
+            float(stiff_coef), kind, bool(warm), b.stride())
+
+
+def graphed_cg(gf: GridFem, mass_coef, stiff_coef, precond, b,
+               warm) -> "GraphedCg":
+    """The cached graphed solve of `cg_graph_key`, built and, on a CUDA
+    device, captured at first use."""
+    key = cg_graph_key(gf, mass_coef, stiff_coef, precond, b, warm)
+    cg = _CG_CACHE.get(key)
+    if cg is None:
+        with span("fem.cg_capture"):
+            cg = GraphedCg(gf, mass_coef, stiff_coef, precond, b, warm)
+        _CG_CACHE[key] = cg
+        if len(_CG_CACHE) > _CG_CACHE_SIZE:
+            _CG_CACHE.popitem(last=False)
+    _CG_CACHE.move_to_end(key)
+    return cg
+
+
+class GraphedCg:
+    """The grid step's PCG as two CUDA graphs over static buffers: the
+    prologue (`pcg_start` and the threshold) and one iteration
+    (`pcg_update`), both on the operator `_operator(gf, ...)` applied with
+    the ke and R copied in and the preconditioner set up once here. A
+    solve copies b, ke, R and x0 in, replays the prologue, reads the
+    threshold and z.r in one read, then replays the iteration and reads
+    z.r until `pcg`'s stopping rule holds: `pcg`'s kernels, iterates and
+    iteration count, with one launch an iteration from the host. The
+    graphs are captured when the buffers lie on a CUDA device; elsewhere
+    (the CPU tests) the same bodies run eagerly.
+
+    The static vectors take the memory layouts that pcg's own vectors
+    take for a right side laid out as `b` (b's strides are part of the
+    cache key), so that its dots sum in the same order."""
+
+    def __init__(self, gf: GridFem, mass_coef, stiff_coef, precond, b, warm):
+        like = gf.mass
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=like.dtype, device=like.device)
+
+        self.b = torch.zeros_like(b)
+        self.x0 = torch.zeros_like(b) if warm else None
+        self.ke = torch.zeros_like(gf.ke)
+        self.R = zeros(6, 3, 3, gf.cellw.shape[0])
+        self.tol2 = zeros()
+        self.head = zeros(2)          # threshold and z.r after the prologue
+        self.rz = self.head[1]
+        # The bodies read the mesh through a GridFem whose ke is the
+        # static one, and hold no frame's own stiffness.
+        gs = dataclasses.replace(gf, ke=self.ke)
+        operator = _operator(gs, mass_coef, stiff_coef)
+        self.matvec = lambda v: operator(v, self.ke, self.R)
+        self.prec = _preconditioner(gs, precond, mass_coef, stiff_coef)
+        _, x, r, p, _ = pcg_start(self.matvec, self.b, self.prec, self.x0)
+        self.x, self.r, self.p = (torch.zeros_like(t) for t in (x, r, p))
+        self.bodies = (self._prologue, self._iteration)
+        self.graphs = self._capture() if like.is_cuda else None
+
+    def _prologue(self):
+        b_zb, x, r, p, rz = pcg_start(self.matvec, self.b, self.prec,
+                                      self.x0)
+        self.head.copy_(torch.stack([self.tol2 * b_zb, rz]))
+        self.x.copy_(x)
+        self.r.copy_(r)
+        self.p.copy_(p)
+
+    def _iteration(self):
+        x, r, p, rz = pcg_update(self.matvec, self.prec, self.x, self.r,
+                                 self.p, self.rz)
+        self.x.copy_(x)
+        self.r.copy_(r)
+        self.p.copy_(p)
+        self.rz.copy_(rz)
+
+    def _capture(self):
+        """Warm the bodies up on a side stream, then capture each into a
+        graph (one memory pool)."""
+        side = torch.cuda.Stream(self.b.device)
+        side.wait_stream(torch.cuda.current_stream(self.b.device))
+        with torch.cuda.stream(side):
+            for body in self.bodies:
+                body()
+        torch.cuda.current_stream(self.b.device).wait_stream(side)
+        graphs = []
+        for body in self.bodies:
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, pool=graphs[0].pool() if graphs
+                                  else None, stream=side):
+                body()
+            graphs.append(g)
+        CG_GRAPH["captures"] += 1
+        return tuple(graphs)
+
+    def _run(self, i):
+        """Body i (0 the prologue, 1 the iteration): its graph's replay,
+        or the body itself where none was captured."""
+        if self.graphs is None:
+            self.bodies[i]()
+        else:
+            self.graphs[i].replay()
+
+    def solve(self, b, ke, R, x0, tol, max_iters, stats=None):
+        """(x, iterations) of `pcg` on this step's operator from x0 (None
+        when cold); `stats["graphed_iters"]`, if given, grows by the
+        iterations replayed. x is a copy, not the static buffer."""
+        with torch.no_grad():
+            self.b.copy_(b)
+            self.ke.copy_(ke)
+            self.R.copy_(R)
+            if self.x0 is not None:
+                self.x0.copy_(x0)
+            self.tol2.fill_(tol * tol)
+        self._run(0)
+        with span("fem.cg_sync"):
+            thresh, rz = self.head.tolist()
+        it = 0
+        go = it < max_iters and rz > thresh
+        while go:
+            with span("fem.cg_iter"):
+                self._run(1)
+                it += 1
+                with span("fem.cg_sync"):
+                    rz = float(self.rz)
+                go = it < max_iters and rz > thresh
+        if self.graphs is not None:
+            CG_GRAPH["replays"] += it
+            if stats is not None:
+                stats["graphed_iters"] = stats.get("graphed_iters", 0) + it
+        return self.x.clone(), it
+
+
 def timestep(
     gf: GridFem,
     state: FemState,
@@ -672,72 +904,51 @@ def timestep(
     gradients reach the element stiffness gf.ke (Young's modulus) and the
     state through one adjoint CG solve; the returned count is then -1, as
     in the reference, and `solve_stats` receives the forward and adjoint
-    iteration counts. The preconditioner is not differentiated."""
+    iteration counts. The preconditioner is not differentiated.
+
+    On a CUDA device the solves (forward and adjoint) replay the cached
+    CUDA graphs of `graphed_cg`, with the preconditioner set up once a
+    cache key, and return a detached copy of the solution;
+    `solve_stats["graphed_iters"]` counts their iterations. Elsewhere
+    `pcg` runs its loop eagerly."""
     with span("fem.step"):
         free = gf.free[..., None]
-        m = gf.mass[..., None]
-
         with span("fem.forces"):
-            R = kinematics(gf, state.q)
-            f_int = internal_forces(gf, state.q, R)
-            kq = stiffness_apply_rot(gf, R, state.qvel)
-            residual = -h * (
-                (h + damping_stiffness) * kq
-                + damping_mass * m * state.qvel
-                + f_int
-                - f_ext
-            )
-            residual = torch.where(free, residual, 0.0)
+            R, residual = _forces(gf, state, f_ext, h, damping_mass,
+                                  damping_stiffness)
 
         mass_coef = 1.0 + h * damping_mass
         stiff_coef = h * damping_stiffness + h * h
+        operator = _operator(gf, mass_coef, stiff_coef)
+        if solve_stats is not None:
+            solve_stats["graphed_iters"] = 0
 
-        def operator(v, ke, rot):
-            g = gf if ke is gf.ke else dataclasses.replace(gf, ke=ke)
-            vf = torch.where(free, v, 0.0)
-            out = (mass_coef * m * vf
-                   + stiff_coef * stiffness_apply_rot(g, rot, vf))
-            return torch.where(free, out, v)
+        if residual.is_cuda:
+            # The operator's parameters, forward and adjoint alike, are
+            # this step's gf.ke and R (symmetric_solve's theta).
+            def solve(mv, b, x0=None):
+                cg = graphed_cg(gf, mass_coef, stiff_coef, precond, b,
+                                warm=x0 is not None)
+                return cg.solve(b, gf.ke, R, x0, cg_tol, cg_max_iters,
+                                solve_stats)
+        else:
+            with span("fem.precond_setup"):
+                prec = _preconditioner(gf, precond, mass_coef, stiff_coef)
 
-        with span("fem.precond_setup"):
-            if precond == "mg" and gf.levels:
-                pre_inv = None
-                if (
-                    gf.coarse_inv is not None
-                    and abs(mass_coef - gf.coarse_coefs[0]) < 1e-12
-                    and abs(stiff_coef - gf.coarse_coefs[1]) < 1e-12
-                ):
-                    pre_inv = gf.coarse_inv
-                setup = mg_setup(gf.levels, mass_coef, stiff_coef, pre_inv)
-
-                def prec(r):
-                    return vcycle(gf.levels, mass_coef, stiff_coef, r, setup)
-            else:
-                mflat = gf.mass.reshape(-1)
-                eye = torch.eye(3, dtype=residual.dtype,
-                                device=residual.device)[..., None]
-                blocks = (mass_coef * mflat) * eye + stiff_coef * gf.kdiag
-                freef = gf.free.reshape(-1)[None, None]
-                inv_blocks = _inv3_cm(torch.where(freef, blocks, eye))
-
-                def prec(r):
-                    return _un_cm(_block_apply(inv_blocks, _cm(r)))
+            def solve(mv, b, x0=None):
+                return pcg(mv, b, prec, cg_tol, cg_max_iters, x0=x0)
 
         with span("fem.solve"):
             if differentiable:
-                dv = symmetric_solve(
-                    operator, residual, (gf.ke, R),
-                    lambda mv, b: pcg(mv, b, prec, cg_tol, cg_max_iters),
-                    solve_stats,
-                )
+                dv = symmetric_solve(operator, residual, (gf.ke, R), solve,
+                                     solve_stats)
                 iters = -1
             else:
                 x0 = (None if state.dv is None
                       else torch.where(free, state.dv, 0.0))
-                dv, iters = pcg(lambda v: operator(v, gf.ke, R), residual,
-                                prec, cg_tol, cg_max_iters, x0=x0)
+                dv, iters = solve(lambda v: operator(v, gf.ke, R), residual,
+                                  x0)
                 if solve_stats is not None:
                     solve_stats["forward_iters"] = iters
-        qvel = torch.where(free, state.qvel + dv, 0.0)
-        q = torch.where(free, state.q + h * qvel, 0.0)
-    return FemState(q=q, qvel=qvel, dv=dv), iters
+        new_state = _advance(gf, state, dv, h)
+    return new_state, iters

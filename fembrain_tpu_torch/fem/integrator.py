@@ -58,10 +58,27 @@ def pcg(matvec, b, prec, tol=CG_TOL, max_iters=CG_MAX_ITERS, x0=None):
     residual z.r against tol^2 times that of b, the cold-start initial
     residual, so a warm start x0 saves iterations. The loop test reads
     z.r on the host once per iteration (span `fem.cg_sync`), at the end
-    of each iteration's span `fem.cg_iter`."""
-    b_zb = (tol * tol) * _vdot(b, prec(b))
+    of each iteration's span `fem.cg_iter`. The arithmetic is
+    `pcg_start` and one `pcg_update` an iteration, which the grid
+    solver's CUDA graphs replay (fem.grid_fem.GraphedCg)."""
+    b_zb, x, r, p, rz = pcg_start(matvec, b, prec, x0)
+    b_zb = (tol * tol) * b_zb
     with span("fem.cg_sync"):
         thresh = float(b_zb)
+    it = 0
+    go = it < max_iters and _above(rz, thresh)
+    while go:
+        with span("fem.cg_iter"):
+            x, r, p, rz = pcg_update(matvec, prec, x, r, p, rz)
+            it += 1
+            go = it < max_iters and _above(rz, thresh)
+    return x, it
+
+
+def pcg_start(matvec, b, prec, x0=None):
+    """PCG's prologue: (b.M^-1 b, x, r, p, z.r) of the start from x0
+    (zero when None)."""
+    b_zb = _vdot(b, prec(b))
     if x0 is None:
         x = torch.zeros_like(b)
         r = b
@@ -69,26 +86,22 @@ def pcg(matvec, b, prec, tol=CG_TOL, max_iters=CG_MAX_ITERS, x0=None):
         x = x0
         r = b - matvec(x0)
     z = prec(r)
-    p = z
-    rz = _vdot(r, z)
-    it = 0
-    go = it < max_iters and _above(rz, thresh)
-    while go:
-        with span("fem.cg_iter"):
-            with span("fem.matvec"):
-                ap = matvec(p)
-            alpha = rz / torch.clamp(_vdot(p, ap), min=1e-30)
-            x = x + alpha * p
-            r = r - alpha * ap
-            with span("fem.precond"):
-                z = prec(r)
-            rz_new = _vdot(r, z)
-            beta = rz_new / torch.clamp(rz, min=1e-30)
-            p = z + beta * p
-            rz = rz_new
-            it += 1
-            go = it < max_iters and _above(rz, thresh)
-    return x, it
+    return b_zb, x, r, z, _vdot(r, z)
+
+
+def pcg_update(matvec, prec, x, r, p, rz):
+    """One PCG iteration from (x, r, p, z.r): the next (x, r, p, z.r)."""
+    with span("fem.matvec"):
+        ap = matvec(p)
+    alpha = rz / torch.clamp(_vdot(p, ap), min=1e-30)
+    x = x + alpha * p
+    r = r - alpha * ap
+    with span("fem.precond"):
+        z = prec(r)
+    rz_new = _vdot(r, z)
+    beta = rz_new / torch.clamp(rz, min=1e-30)
+    p = z + beta * p
+    return x, r, p, rz_new
 
 
 def _above(rz, thresh) -> bool:
