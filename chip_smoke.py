@@ -1215,19 +1215,20 @@ def app_phase(root, device, tag, log):
 
 class _ProbeListener:
     """Gizmo listener wiring the probe to the deformable: each drag moves
-    the probe, turns its contacts into ring forces (the host core) and
-    takes one FEM step (the reference's AvatarProbe::onTranslate role)."""
+    the probe, turns its contacts into ring forces (the host core) through
+    `Deformable.probe_forces` and takes one FEM step (the reference's
+    AvatarProbe::onTranslate role)."""
 
-    def __init__(self, probe, body, rest):
-        self.probe, self.body, self.rest = probe, body, rest
+    def __init__(self, probe, body):
+        self.probe, self.body = probe, body
         self.rows = []
 
     def on_translate(self, delta, pos):
-        positions = self.rest + self.body.state.q.cpu().numpy()
-        idx, forces = self.probe.move_to(pos, positions)
-        f = self.body.haptic_forces(idx, forces) if len(idx) else None
+        stats = {}
+        f = self.body.probe_forces(self.probe, pos, stats)
         ms, _ = sync_ms(lambda: self.body.timestep(f))
-        self.rows.append((ms, self.body.stats()["cg_iters"], len(idx)))
+        self.rows.append((ms, self.body.stats()["cg_iters"],
+                          stats["contacts"]))
 
     def on_rotate(self, quat):
         pass
@@ -1397,7 +1398,7 @@ def interaction_phase(root, device, params, tag, log):
     gizmo = GizmoManager()
     gizmo.gizmo_type = GizmoType.AVATAR
     gizmo.pos = probe.pos.copy()
-    listener = _ProbeListener(probe, body, pos)
+    listener = _ProbeListener(probe, body)
     gizmo.register(listener)
     for _ in range(INTERACT_STEPS):
         gizmo.apply(np.array([0.0, -PROBE_DRAG, 0.0]))

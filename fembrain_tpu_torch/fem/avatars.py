@@ -65,6 +65,12 @@ class AvatarProbe:
     picked_node: int = -1
     pick_coeff: float = 10000.0
 
+    @property
+    def contact_nodes(self) -> np.ndarray:
+        """The contacted node ids, in the order they were first seen."""
+        return np.fromiter(self._contacts.keys(), np.int64,
+                           len(self._contacts))
+
     def clear_contact(self) -> None:
         """Release the contact (reference clears on grip release): the
         vertex hash empties and the next contact re-picks its face."""

@@ -14,11 +14,13 @@ here it is applied only to penetrating nodes (same constants: restitution
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
 from .. import femcore
+from ..utils.profiler import span
 from . import integrator as integ
 from .integrator import FemState
 from .tetmesh import FemMesh
@@ -169,6 +171,35 @@ class Deformable:
                       radius=DEFAULT_HAPTIC_RADIUS) -> np.ndarray:
         return self._native_adj.ring_forces(contact_idx, contact_force,
                                             radius)
+
+    def probe_forces(self, probe, pos, stats: dict | None = None,
+                     state: FemState | None = None) -> torch.Tensor:
+        """The load [N, 3] that the probe moved to `pos` puts on the
+        tissue, on the mesh's device: the frame's haptic load (the
+        reference's AvatarProbe::onTranslate, then applyHapticForces,
+        Deformable.cpp:634-706). Reads the node positions of `state` (the
+        body's own when None) to the host once, moves the probe there
+        (its sticky contact face and first-seen contact positions carry
+        over from frame to frame until `probe.clear_contact()`), spreads
+        the contact forces over DEFAULT_HAPTIC_RADIUS rings on the host
+        core and copies the load back. `stats`, if given, receives
+        "contacts" (the probe's contacted nodes), "ring_nodes" (nodes the
+        load reaches) and "host_ms" (the whole call on the host clock)."""
+        t0 = time.perf_counter()
+        rest = self.mesh.rest
+        q = (self.state if state is None else state).q
+        with span("probe.contact"):
+            nodes = (rest + q).cpu().numpy().astype(np.float64)
+            idx, forces = probe.move_to(pos, nodes)
+        with span("probe.rings"):
+            f = (self.haptic_forces(idx, forces) if len(idx)
+                 else np.zeros((self.mesh.n_nodes, 3)))
+            load = torch.as_tensor(f, dtype=rest.dtype).to(rest.device)
+        if stats is not None:
+            stats["contacts"] = int(len(idx))
+            stats["ring_nodes"] = int(np.count_nonzero(np.any(f != 0.0, 1)))
+            stats["host_ms"] = (time.perf_counter() - t0) * 1e3
+        return load
 
     def reset(self) -> None:
         """Reference resetDeformations -> ResetToRest (Deformable.cpp:629-632)."""

@@ -157,6 +157,78 @@ def symmetric_solve(matvec, b, theta, solve, stats: dict | None = None):
     return _SymmetricSolve.apply(solve, matvec, stats, b, *theta)
 
 
+def _operator(mesh: FemMesh, free, mass_coef, stiff_coef):
+    """K_eff v on `mesh` (int64 indices), with identity rows on the fixed
+    DOFs: (v, krot, m) -> [N, 3], krot the step's rotated element
+    stiffness and m the nodal masses [N, 1]."""
+
+    def operator(v, krot_, m_):
+        vf = torch.where(free, v, 0.0)
+        out = mass_coef * m_ * vf + stiff_coef * co.stiffness_apply_pre(
+            mesh, krot_, vf
+        )
+        return torch.where(free, out, v)
+
+    return operator
+
+
+def _block_jacobi(inv_blocks):
+    """The 3x3 block-Jacobi preconditioner r -> inv_blocks r."""
+
+    def prec(r):
+        return (inv_blocks @ r[..., None])[..., 0]
+
+    return prec
+
+
+def _system(mesh: FemMesh, state: FemState, f_ext, h, damping_mass,
+            damping_stiffness):
+    """The step's system K_eff dv = residual on `mesh` (int64 indices):
+    (free [N,1], m [N,1], residual, krot, inv_blocks, mass_coef,
+    stiff_coef), inv_blocks the inverted 3x3 diagonal blocks of K_eff."""
+    free = ~mesh.fixed[:, None]  # [N,1] broadcast over xyz
+    m = mesh.mass[:, None]
+
+    with span("fem.forces"):
+        _, R = co.element_kinematics(mesh, state.q)
+        f_int = co.internal_forces(mesh, state.q, R)
+
+        # R is constant across the CG solve: materialize R Ke R^T once
+        # so the per-iteration matvec is a single batched 12x12 product.
+        krot = co.rotated_stiffness(mesh, R)
+
+        kq = co.stiffness_apply_pre(mesh, krot, state.qvel)
+        residual = -h * (
+            (h + damping_stiffness) * kq
+            + damping_mass * m * state.qvel
+            + f_int
+            - f_ext
+        )
+        residual = torch.where(free, residual, 0.0)
+
+    mass_coef = 1.0 + h * damping_mass
+    stiff_coef = h * damping_stiffness + h * h
+
+    # 3x3 block-Jacobi preconditioner: per-node diagonal blocks of
+    # K_eff, inverted once per step (identity on fixed nodes, matching
+    # the operator's identity rows there). Not differentiated.
+    with span("fem.precond_setup"), torch.no_grad():
+        eye = torch.eye(3, dtype=residual.dtype, device=residual.device)
+        blocks = (mass_coef * m)[..., None] * eye + stiff_coef * (
+            co.stiffness_blocks(mesh, krot)
+        )
+        inv_blocks = co._inv3(torch.where(free[..., None], blocks, eye))
+    return free, m, residual, krot, inv_blocks, mass_coef, stiff_coef
+
+
+def with_long_indices(mesh: FemMesh) -> FemMesh:
+    """`mesh` with its index tensors as int64, as the step indexes."""
+    return dataclasses.replace(
+        mesh, tets=mesh.tets.long(),
+        node_gather=None if mesh.node_gather is None
+        else mesh.node_gather.long())
+
+
 def timestep(
     mesh: FemMesh,
     state: FemState,
@@ -177,55 +249,20 @@ def timestep(
     stiffness mesh.ke, the mass and the state through one adjoint solve
     instead of through the CG iterations; the iteration count is then
     reported as -1, and `solve_stats`, if given, receives
-    "forward_iters" and, after backward, "adjoint_iters"."""
+    "forward_iters" and, after backward, "adjoint_iters".
+
+    On a CUDA device the forward default's solve replays the cached CUDA
+    graphs of `fem.tet_cg_graph.graphed_tet_cg` (pcg's arithmetic, one
+    launch an iteration) and returns a detached copy of the solution;
+    `solve_stats["graphed_iters"]` then counts its iterations. Elsewhere,
+    and for the differentiable solve, pcg runs its eager loop."""
     with span("fem.step"):
         # Index tensors as int64 once, not once per matvec.
-        mesh = dataclasses.replace(
-            mesh, tets=mesh.tets.long(),
-            node_gather=None if mesh.node_gather is None
-            else mesh.node_gather.long())
-        free = ~mesh.fixed[:, None]  # [N,1] broadcast over xyz
-        m = mesh.mass[:, None]
-
-        with span("fem.forces"):
-            _, R = co.element_kinematics(mesh, state.q)
-            f_int = co.internal_forces(mesh, state.q, R)
-
-            # R is constant across the CG solve: materialize R Ke R^T once
-            # so the per-iteration matvec is a single batched 12x12 product.
-            krot = co.rotated_stiffness(mesh, R)
-
-            kq = co.stiffness_apply_pre(mesh, krot, state.qvel)
-            residual = -h * (
-                (h + damping_stiffness) * kq
-                + damping_mass * m * state.qvel
-                + f_int
-                - f_ext
-            )
-            residual = torch.where(free, residual, 0.0)
-
-        mass_coef = 1.0 + h * damping_mass
-        stiff_coef = h * damping_stiffness + h * h
-
-        def operator(v, krot_, m_):
-            vf = torch.where(free, v, 0.0)
-            out = mass_coef * m_ * vf + stiff_coef * co.stiffness_apply_pre(
-                mesh, krot_, vf
-            )
-            return torch.where(free, out, v)
-
-        # 3x3 block-Jacobi preconditioner: per-node diagonal blocks of
-        # K_eff, inverted once per step (identity on fixed nodes, matching
-        # the operator's identity rows there). Not differentiated.
-        with span("fem.precond_setup"), torch.no_grad():
-            eye = torch.eye(3, dtype=residual.dtype, device=residual.device)
-            blocks = (mass_coef * m)[..., None] * eye + stiff_coef * (
-                co.stiffness_blocks(mesh, krot)
-            )
-            inv_blocks = co._inv3(torch.where(free[..., None], blocks, eye))
-
-        def prec(r):
-            return (inv_blocks @ r[..., None])[..., 0]
+        key_mesh, mesh = mesh, with_long_indices(mesh)
+        free, m, residual, krot, inv_blocks, mass_coef, stiff_coef = (
+            _system(mesh, state, f_ext, h, damping_mass, damping_stiffness))
+        operator = _operator(mesh, free, mass_coef, stiff_coef)
+        prec = _block_jacobi(inv_blocks)
 
         with span("fem.solve"):
             if differentiable:
@@ -240,8 +277,17 @@ def timestep(
             else:
                 x0 = (None if state.dv is None
                       else torch.where(free, state.dv, 0.0))
-                dv, iters = pcg(lambda v: operator(v, krot, m), residual,
-                                prec, cg_tol, cg_max_iters, x0=x0)
+                if residual.is_cuda:
+                    from .tet_cg_graph import graphed_tet_cg
+                    cg = graphed_tet_cg(key_mesh, mass_coef, stiff_coef,
+                                        residual, krot, inv_blocks,
+                                        warm=x0 is not None)
+                    dv, iters = cg.solve(residual, krot, inv_blocks, x0,
+                                         cg_tol, cg_max_iters, solve_stats)
+                else:
+                    dv, iters = pcg(lambda v: operator(v, krot, m),
+                                    residual, prec, cg_tol, cg_max_iters,
+                                    x0=x0)
                 if solve_stats is not None:
                     solve_stats["forward_iters"] = iters
         qvel = torch.where(free, state.qvel + dv, 0.0)
