@@ -540,12 +540,14 @@ def main_path_phase(root, device, params, tag, log):
     import torch
 
     from fembrain_tpu_torch.fem import grid_fem as gfm
+    from fembrain_tpu_torch.render import sphere_trace as st
     from fembrain_tpu_torch.render import tile_trace as tt
     from fembrain_tpu_torch.render.deformed import (
         coupled_step_grid_fast, disp_weights_centers, trace_deformed_rbf_fast,
     )
 
     tt.reset_launch_counts()
+    bracket0 = dict(st.BRACKET)
     gfm.reset_cg_graph_counts()
     t_main = time.perf_counter()
     frame = build_frame(root, device, log)
@@ -606,6 +608,22 @@ def main_path_phase(root, device, params, tag, log):
     )
     main_s = time.perf_counter() - t_main
     launches = dict(tt.LAUNCHES)
+    bracket = {k: st.BRACKET[k] - bracket0[k] for k in bracket0}
+    # The rest frame's bracket alone: the kernel held to its plain version
+    # on the same card tensors at the main path's margins, then both timed.
+    for d in (0.0, MAX_DISP):
+        margin = 0.05 + torch.tensor(d, device=device)
+        card = st.prim_interval(scene, ro_b, rd_b, margin)
+        plain = st._prim_interval_plain(scene, ro_b, rd_b, margin)
+        for name, a, b in zip(("t_enter", "t_exit", "alive"), card, plain):
+            if not torch.equal(a, b):
+                raise AssertionError(f"bracket kernel's {name} differs from "
+                                     f"the plain version's at margin "
+                                     f"0.05 + {d}")
+    bracket_ms = event_ms(lambda: st.prim_interval(scene, ro_b, rd_b),
+                          reps=N_FRAMES)
+    bracket_plain_ms = event_ms(
+        lambda: st._prim_interval_plain(scene, ro_b, rd_b), reps=N_FRAMES)
     # Two sets of N_FRAMES rest frames and N_FRAMES kernel runs of the
     # rest split; N_FRAMES coupled frames and as many trace stages of the
     # coupled split.
@@ -618,6 +636,11 @@ def main_path_phase(root, device, params, tag, log):
         f"of the coupled frames' CG iterations {share:.4f}")
     if share != 1.0:
         raise AssertionError("the coupled frames' CG ran outside its graphs")
+    # One bracket a traced frame, each through the kernel.
+    n_traces = 3 * N_FRAMES + len(cg_iters) + N_FRAMES
+    log(f"brackets in the main path: {bracket}, traces {n_traces}")
+    if bracket != {"card": n_traces, "plain": 0}:
+        raise AssertionError("the main path bracketed outside the kernel")
     for name in ("trace_additive_rest", "trace_additive_wendland"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched by the main path")
@@ -640,6 +663,8 @@ def main_path_phase(root, device, params, tag, log):
         f"{rays / rest_ms * 1e3:.1f} rays/s; warm {warm_ms:.3f} ms/frame, "
         f"of it prepare_tiles {prepare_ms:.3f} ms, the kernel with its "
         f"wrapper {run_ms:.3f} ms {tag}")
+    log(f"rest bracket {WIDTH}x{HEIGHT}: kernel {bracket_ms:.3f} ms, plain "
+        f"{bracket_plain_ms:.3f} ms (CUDA events) {tag}")
     log(f"coupled frame {WIDTH}x{HEIGHT}: {frame_ms:.3f} ms/frame, "
         f"{1e3 / frame_ms:.3f} fps {tag}")
     log(f"coupled split: fem {fem_ms:.3f} ms, rbf {rbf_ms:.3f} ms, "

@@ -32,6 +32,7 @@ _SIGNATURES = {
     "fb_trace_additive": ([_I] + [_P] * 10 + [_I] * 5 + [_F] * 3 + [_I] * 2
                           + [_P, _I, _F, _F, _I, _I, _I, _P]),
     "fb_trace_general": [_P] * 10 + [_I] * 10 + [_F] * 4 + [_I] * 2 + [_P],
+    "fb_ray_bracket": [_P] * 6 + [_I] * 2 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -13,6 +13,7 @@ the dense tracer plus `shade`.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -81,6 +82,10 @@ def support_radius_bound(fv):
 # temporaries at 1080p (2,073,600 x 163 f32 is 1.35 GB each).
 PRIM_INTERVAL_CHUNK = 1 << 18
 
+# Calls of `prim_interval` by path: "card" launched the bracket kernel
+# (csrc/ray_bracket.cu), "plain" ran the dense test.
+BRACKET = {"card": 0, "plain": 0}
+
 
 def prim_interval(scene: Scene, ro, rd, margin: float = 0.05):
     """Tight per-ray march bracket from per-primitive support boxes.
@@ -88,12 +93,62 @@ def prim_interval(scene: Scene, ro, rd, margin: float = 0.05):
     Intersects every ray with every prim's conservative support AABB and
     returns the hull [t_enter, t_exit] of the valid intervals plus an
     any-overlap mask, intersected with the scene slab. The field is
-    exactly zero outside the union of the boxes. Dense [N, P] test,
-    chunked over rays."""
+    exactly zero outside the union of the boxes. `margin` inflates every
+    box; a float or a 0-d tensor. On a CUDA tensor one launch of the
+    bracket kernel gives the plain version's three tensors bit for bit,
+    outside autograd (no caller differentiates a march bound); elsewhere
+    the plain version, a dense [N, P] test chunked over rays."""
+    if ro.is_cuda:
+        BRACKET["card"] += 1
+        return _prim_interval_cuda(scene, ro, rd, margin)
+    BRACKET["plain"] += 1
+    return _prim_interval_plain(scene, ro, rd, margin)
+
+
+def _prim_interval_cuda(scene: Scene, ro, rd, margin):
+    """`prim_interval` as one launch of the CUDA bracket kernel on the
+    current stream. The inflated boxes, the scene slab last, are rounded
+    here as the plain version rounds them; the margin is never read to
+    the host."""
+    from .. import native
+
+    n, P = ro.shape[0], scene.n_prims
+    with torch.no_grad():
+        lo = torch.cat([scene.prim_bb_lo[:P], scene.bbox_lo[None]]) - margin
+        hi = torch.cat([scene.prim_bb_hi[:P], scene.bbox_hi[None]]) + margin
+        boxes = torch.cat([lo, hi], 1)  # [P + 1, 6]
+        ro, rd = ro.detach().contiguous(), rd.detach().contiguous()
+    for name, t in (("ro", ro), ("rd", rd)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (n, 3):
+            raise ValueError(f"{name} must be float32 of shape {(n, 3)}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    if boxes.dtype != torch.float32:
+        raise ValueError(f"the scene's boxes must be float32, got "
+                         f"{boxes.dtype}")
+    lib = native.load()
+    t_enter = torch.empty(n, device=ro.device, dtype=torch.float32)
+    t_exit = torch.empty_like(t_enter)
+    alive = torch.empty(n, device=ro.device, dtype=torch.bool)
+    ptr = ctypes.c_void_p
+    rc = lib.fb_ray_bracket(
+        ptr(ro.data_ptr()), ptr(rd.data_ptr()), ptr(boxes.data_ptr()),
+        ptr(t_enter.data_ptr()), ptr(t_exit.data_ptr()),
+        ptr(alive.data_ptr()), ctypes.c_int(n), ctypes.c_int(P),
+        ptr(torch.cuda.current_stream(ro.device).cuda_stream),
+    )
+    if rc != 0:
+        raise RuntimeError(f"ray_bracket launch failed: "
+                           f"{native.error_string(rc)}")
+    return t_enter, t_exit, alive
+
+
+def _prim_interval_plain(scene: Scene, ro, rd, margin=0.05):
+    """`prim_interval` in plain torch: the dense [N, P] test, chunked over
+    rays."""
     if ro.shape[0] > PRIM_INTERVAL_CHUNK:
         parts = [
-            prim_interval(scene, ro[i : i + PRIM_INTERVAL_CHUNK],
-                          rd[i : i + PRIM_INTERVAL_CHUNK], margin)
+            _prim_interval_plain(scene, ro[i : i + PRIM_INTERVAL_CHUNK],
+                                 rd[i : i + PRIM_INTERVAL_CHUNK], margin)
             for i in range(0, ro.shape[0], PRIM_INTERVAL_CHUNK)
         ]
         return tuple(torch.cat(p) for p in zip(*parts))
