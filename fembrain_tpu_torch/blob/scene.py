@@ -540,6 +540,15 @@ def _morton_code(centers: np.ndarray, lo: np.ndarray, hi: np.ndarray):
     return spread(q[:, 0]) | (spread(q[:, 1]) << 1) | (spread(q[:, 2]) << 2)
 
 
+def morton_order(scene: Scene) -> np.ndarray:
+    """The prim rows' order by the Morton code of their support-box
+    centres, padding rows last, ties in row order."""
+    centers = 0.5 * (_np(scene.prim_bb_lo) + _np(scene.prim_bb_hi))
+    code = _morton_code(centers, _np(scene.bbox_lo), _np(scene.bbox_hi))
+    code[scene.n_prims:] = np.uint32(0xFFFFFFFF)
+    return np.argsort(code, kind="stable")
+
+
 def _normalize_additive(scene: Scene) -> Scene:
     """Canonicalize additive scenes (every op a sum-fold, each prim used
     once — the dominant blobby-anatomy case) at pack time:
@@ -563,12 +572,7 @@ def _normalize_additive(scene: Scene) -> Scene:
         return scene
 
     device = scene.prim_type.device
-    bb_lo = _np(scene.prim_bb_lo)
-    bb_hi = _np(scene.prim_bb_hi)
-    centers = 0.5 * (bb_lo + bb_hi)
-    code = _morton_code(centers, _np(scene.bbox_lo), _np(scene.bbox_hi))
-    code[scene.n_prims:] = np.uint32(0xFFFFFFFF)  # padding rows sort last
-    perm = np.argsort(code, kind="stable")
+    perm = morton_order(scene)
 
     def take(a):
         return torch.as_tensor(_np(a)[perm], device=device)

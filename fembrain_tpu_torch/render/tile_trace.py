@@ -41,11 +41,12 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
+import weakref
 
 import numpy as np
 import torch
 
-from ..blob.scene import SRC_RANGE, Scene
+from ..blob.scene import SRC_RANGE, Scene, morton_order
 from ..blob.types import PrimType
 from ..ops.field import (
     UNROLL_LIMIT, field, field_rows, local_coords, point_merge_target,
@@ -450,31 +451,43 @@ def _prim_rows(pm, pos, dirv, res, ptype, aux):
     ).contiguous()
 
 
+# Scene-static layouts, built once a Scene object and dropped with it.
+# Keyed by identity, never by value: the port never edits a Scene's
+# tensors in place (pack, dataclasses.replace and convert make a new
+# object), so a layout stays true for its Scene's life.
+_LAYOUTS: dict = {}
+
+
+def _cached(scene: Scene, build):
+    """`build(scene)`, built once a Scene object, outside autograd: no
+    launch differentiates its inputs (`newton_nudge` carries the
+    gradient)."""
+    key = (id(scene), build)
+    if key not in _LAYOUTS:
+        with torch.no_grad():
+            _LAYOUTS[key] = build(scene)
+        weakref.finalize(scene, _LAYOUTS.pop, key, None)
+    return _LAYOUTS[key]
+
+
+def _box_diag(scene: Scene) -> torch.Tensor:
+    """[] float32 on the host: the diagonal of the scene box grown by
+    0.05, which times `step_frac` is the base step of a trace no
+    displacement inflates."""
+    lo, hi = scene.bbox_lo - 0.05, scene.bbox_hi + 0.05
+    return torch.sqrt(torch.sum((hi - lo) ** 2)).cpu()
+
+
 def _additive_layout(scene: Scene):
-    """Prim rows in Morton block order plus per-block support boxes and
-    world->local stretch bounds. Pack-normalized scenes are already in
-    Morton order; others are sorted here (padding rows last)."""
+    """Prim rows in Morton block order plus per-block support boxes,
+    world->local stretch bounds, effective prim types and real-block mask,
+    whether to cull per eval, and `_box_diag`. Pack-normalized scenes are
+    already in Morton order; others are put in the pack's order here."""
     P = scene.capacity_prims
     dev = scene.prim_type.device
     real = torch.arange(P, device=dev) < scene.n_prims
-    if scene.additive_block_types:
-        perm = torch.arange(P, device=dev)
-    else:
-        c = 0.5 * (scene.prim_bb_lo + scene.prim_bb_hi)
-        span = torch.clamp(scene.bbox_hi - scene.bbox_lo, min=1e-6)
-        qn = torch.clamp((c - scene.bbox_lo[None]) / span[None], 0.0, 1.0)
-        q = (qn * 1023.0).to(torch.int64)
-
-        def spread(x):
-            x = (x | (x << 16)) & 0x030000FF
-            x = (x | (x << 8)) & 0x0300F00F
-            x = (x | (x << 4)) & 0x030C30C3
-            x = (x | (x << 2)) & 0x09249249
-            return x
-
-        code = spread(q[:, 0]) | (spread(q[:, 1]) << 1) | (spread(q[:, 2]) << 2)
-        code = torch.where(real, code, 0xFFFFFFFF)
-        perm = torch.argsort(code, stable=True)
+    perm = (torch.arange(P, device=dev) if scene.additive_block_types
+            else torch.as_tensor(morton_order(scene), device=dev))
     pm = scene.prim_mtx[perm]
     ptype = scene.prim_type[perm]
     pos, dirv, res = scene.prim_pos[perm], scene.prim_dir[perm], scene.prim_res[perm]
@@ -516,8 +529,14 @@ def _additive_layout(scene: Scene):
     )
     prims = _prim_rows(pm, pos, dirv, res, eff_type, torch.zeros_like(eff_type))
     prim_boxes = torch.cat([scene.prim_bb_lo[perm], scene.prim_bb_hi[perm]], 1)
-    return (prims, prim_boxes, ptype.to(torch.int64), blk_lo, blk_hi,
-            blk_stretch, tuple(eff_types))
+    # Scenes with few real blocks evaluate every real block (the cull's
+    # reductions would cost more than it skips); others apply the static
+    # tile flags and cull per eval against the live lanes' hull.
+    real_blocks = [bool(t) for t in eff_types]
+    return (prims, prim_boxes.contiguous(), ptype.to(torch.int64), blk_lo,
+            blk_hi, blk_stretch, tuple(eff_types),
+            torch.tensor(real_blocks, device=dev), sum(real_blocks) > 4,
+            _box_diag(scene))
 
 
 def _tile_hulls(ro, rd, t_enter, t_exit, alive, tiles):
@@ -578,27 +597,26 @@ def prepare_tiles(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
         if not is_additive_path(scene):
             raise ValueError("the additive tile tracer takes additive scenes "
                              "only; prepare_general takes the others")
-        dev = ro.device
-        if disp is not None:
-            max_disp = disp.max_disp
-        else:
-            max_disp = torch.zeros((), device=dev)
+        (prims, prim_boxes, prim_types, blk_lo, blk_hi, blk_stretch,
+         eff_types, real, dyn_cull, diag) = _cached(scene, _additive_layout)
+        max_disp = 0.0 if disp is None else disp.max_disp
         ro, rd = _pad_rays(ro, rd, tile)
         tiles = ro.shape[0] // tile
         with span("trace.bracket"):
             t_enter, t_exit, alive0 = prim_interval(scene, ro, rd,
                                                     margin=0.05 + max_disp)
-
-        (prims, prim_boxes, prim_types, blk_lo, blk_hi, blk_stretch,
-         eff_types) = _additive_layout(scene)
-        # The deformed trace derives its base step from the max_disp-inflated
-        # bbox and tests deformed-space hulls against inflated block boxes.
-        lo = scene.bbox_lo - max_disp - 0.05
-        hi = scene.bbox_hi + max_disp + 0.05
-        base_step = torch.sqrt(torch.sum((hi - lo) ** 2)) * params.step_frac
+        if disp is None:
+            base_step = diag * params.step_frac
+        else:
+            # The deformed trace derives its base step from the
+            # max_disp-inflated bbox and tests deformed-space hulls against
+            # inflated block boxes.
+            lo = scene.bbox_lo - max_disp - 0.05
+            hi = scene.bbox_hi + max_disp + 0.05
+            base_step = torch.sqrt(torch.sum((hi - lo) ** 2)) * params.step_frac
+            blk_lo, blk_hi = blk_lo - max_disp, blk_hi + max_disp
         hull_lo, hull_hi = _tile_hulls(ro, rd, t_enter, t_exit, alive0, tiles)
-        live = _hull_box_live(hull_lo, hull_hi, blk_lo - max_disp,
-                              blk_hi + max_disp)
+        live = _hull_box_live(hull_lo, hull_hi, blk_lo, blk_hi)
         tile_stretch = torch.amax(
             torch.where(live > 0, blk_stretch[None], 0.0), -1)
         tile_inv = 1.0 / torch.clamp(tile_stretch, min=1e-6)
@@ -656,12 +674,6 @@ def prepare_tiles(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
         elif disp is not None:
             raise TypeError(f"unknown displacement spec {type(disp).__name__}")
         tile_rows = torch.stack([tile_inv, shrink_t, slack_t, ldrift_t], -1)
-
-        # Scenes with few real blocks evaluate every real block (the cull's
-        # reductions would cost more than it skips); others apply the static
-        # tile flags and cull per eval against the live lanes' hull.
-        real = torch.tensor([bool(t) for t in eff_types], device=dev)
-        dyn_cull = int(real.sum()) > 4
         live = ((live.bool() & real[None]) if dyn_cull
                 else real[None].expand_as(live))
         return TileInputs(
@@ -669,7 +681,7 @@ def prepare_tiles(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
             live=live.to(torch.int32).contiguous(),
             tile_rows=tile_rows.contiguous(),
             prims=prims,
-            prim_boxes=prim_boxes.contiguous(),
+            prim_boxes=prim_boxes,
             prim_types=prim_types,
             block_types=eff_types,
             tile=tile,
@@ -682,6 +694,61 @@ def prepare_tiles(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
             wendland=wend,
             biharmonic=bih,
         )
+
+
+def _general_layout(scene: Scene):
+    """Prim rows with their warp group in column 23, the op fold as
+    register steps with their params, the warp chain table and its chain
+    length, the prims culled by their box, every other prim's fixed
+    `live` flag, the box table and `_box_diag`."""
+    dev = scene.prim_type.device
+    # The op fold as register steps in schedule order (the scene's fold
+    # plan); a range step carries its prim span instead of a range slot.
+    steps = []
+    for op_idx, otype, dst, lk, li, rk, ri in scene.fold_plan:
+        if lk == SRC_RANGE:
+            w = scene.wiring[op_idx]
+            li, ri = w.left, w.right
+        steps.append((otype, dst, lk, li, rk, ri))
+    if not steps:
+        steps = [(0, 0, 0, 0, 0, 0)]
+    sched = [p[0] for p in scene.fold_plan] or [0]
+    step_params = scene.op_params[torch.tensor(sched, device=dev)][:, :2]
+
+    # Warp chains per group, root-first, with their op's parameters.
+    P = scene.capacity_prims
+    group = torch.zeros(P, dtype=torch.int64, device=dev)
+    chain_len = max(1, max(len(c) for c, _ in scene.warp_groups))
+    warps = torch.zeros((len(scene.warp_groups) * chain_len, WARP_ROW),
+                        device=dev)
+    warps[:, 0] = -1.0
+    for g, (chain, prim_idx) in enumerate(scene.warp_groups):
+        if prim_idx:
+            group[list(prim_idx)] = g
+        for j, wire in enumerate(chain):
+            row = g * chain_len + j
+            warps[row, :3] = torch.tensor(
+                [wire.wtype, wire.axis_a, wire.axis_b], dtype=torch.float32)
+            warps[row, 4:] = scene.op_params[wire.op_idx]
+    prims = _prim_rows(scene.prim_mtx, scene.prim_pos, scene.prim_dir,
+                       scene.prim_res, scene.prim_type, group)
+
+    # A prim's field is exactly 0 outside its support box whatever op
+    # consumes it, and every point the march evaluates for a live ray lies
+    # in the tile's segment hull: a prim under no warp is dead on a tile
+    # whose hull misses its box. Warped prims see moved points and stay
+    # always live; padding rows are dead.
+    boxed = torch.zeros(P, dtype=torch.bool, device=dev)
+    for chain, prim_idx in scene.warp_groups:
+        if not chain and prim_idx:
+            boxed[list(prim_idx)] = True
+    real = torch.arange(P, device=dev) < scene.n_prims
+    fixed = torch.where(real, LIVE_ALWAYS, LIVE_DEAD).to(torch.int32)
+    return (prims, torch.tensor(steps, dtype=torch.int32, device=dev),
+            step_params.float().contiguous(), warps.contiguous(), chain_len,
+            boxed & real, fixed,
+            torch.cat([scene.prim_bb_lo, scene.prim_bb_hi], 1).contiguous(),
+            _box_diag(scene))
 
 
 def prepare_general(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
@@ -697,80 +764,34 @@ def prepare_general(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
                 f"the general tile trace unrolls at most {UNROLL_LIMIT} ops, "
                 f"the scene schedules {len(scene.schedule)}; use "
                 "sphere_trace.trace")
-        dev = ro.device
+        (prims, steps, step_params, warps, chain_len, boxed, fixed, boxes,
+         diag) = _cached(scene, _general_layout)
         ro, rd = _pad_rays(ro, rd, tile)
-        lo = scene.bbox_lo - 0.05
-        hi = scene.bbox_hi + 0.05
         if scene.can_cull:
             with span("trace.bracket"):
                 t_enter, t_exit, alive0 = prim_interval(scene, ro, rd,
                                                         margin=0.05)
         else:
-            t_enter, t_exit = _ray_box(ro, rd, lo[None], hi[None])
+            t_enter, t_exit = _ray_box(ro, rd, scene.bbox_lo[None] - 0.05,
+                                       scene.bbox_hi[None] + 0.05)
             alive0 = t_exit > t_enter
             t_enter = torch.where(alive0, t_enter, 0.0)
             t_exit = torch.where(alive0, t_exit, 0.0)
-
-        # The op fold as register steps in schedule order (the scene's fold
-        # plan); a range step carries its prim span instead of a range slot.
-        steps = []
-        for op_idx, otype, dst, lk, li, rk, ri in scene.fold_plan:
-            if lk == SRC_RANGE:
-                w = scene.wiring[op_idx]
-                li, ri = w.left, w.right
-            steps.append((otype, dst, lk, li, rk, ri))
-        if not steps:
-            steps = [(0, 0, 0, 0, 0, 0)]
-        sched = [p[0] for p in scene.fold_plan] or [0]
-        step_params = scene.op_params[torch.tensor(sched, device=dev)][:, :2]
-
-        # Warp chains per group, root-first, with their op's parameters.
-        P = scene.capacity_prims
-        group = torch.zeros(P, dtype=torch.int64, device=dev)
-        chain_len = max(1, max(len(c) for c, _ in scene.warp_groups))
-        warps = torch.zeros((len(scene.warp_groups) * chain_len, WARP_ROW),
-                            device=dev)
-        warps[:, 0] = -1.0
-        for g, (chain, prim_idx) in enumerate(scene.warp_groups):
-            if prim_idx:
-                group[list(prim_idx)] = g
-            for j, wire in enumerate(chain):
-                row = g * chain_len + j
-                warps[row, :3] = torch.tensor(
-                    [wire.wtype, wire.axis_a, wire.axis_b],
-                    dtype=torch.float32)
-                warps[row, 4:] = scene.op_params[wire.op_idx]
-        prims = _prim_rows(scene.prim_mtx, scene.prim_pos, scene.prim_dir,
-                           scene.prim_res, scene.prim_type, group)
-        base_step = torch.sqrt(torch.sum((hi - lo) ** 2)) * params.step_frac
-
-        # Per-tile prim flags. A prim's field is exactly 0 outside its support
-        # box whatever op consumes it, and every point the march evaluates for
-        # a live ray lies in the tile's segment hull: a prim under no warp is
-        # dead on a tile whose hull misses its box. Warped prims see moved
-        # points and stay always live; padding rows are dead.
         tiles = ro.shape[0] // tile
         hull_lo, hull_hi = _tile_hulls(ro, rd, t_enter, t_exit, alive0, tiles)
-        boxed = torch.zeros(P, dtype=torch.bool, device=dev)
-        for chain, prim_idx in scene.warp_groups:
-            if not chain and prim_idx:
-                boxed[list(prim_idx)] = True
-        real = torch.arange(P, device=dev) < scene.n_prims
         live = torch.where(
             boxed[None],
             _hull_box_live(hull_lo, hull_hi, scene.prim_bb_lo,
                            scene.prim_bb_hi),
-            LIVE_ALWAYS)
-        live = torch.where(real[None], live, LIVE_DEAD).to(torch.int32)
+            fixed[None])
         return GeneralInputs(
             rays=_ray_rows(ro, rd, t_enter, t_exit, alive0),
             prims=prims,
-            steps=torch.tensor(steps, dtype=torch.int32, device=dev),
-            step_params=step_params.float().contiguous(),
-            warps=warps.contiguous(),
+            steps=steps,
+            step_params=step_params,
+            warps=warps,
             live=live.contiguous(),
-            boxes=torch.cat([scene.prim_bb_lo, scene.prim_bb_hi],
-                            1).contiguous(),
+            boxes=boxes,
             scene=scene,
             tile=tile,
             n_real=scene.n_prims,
@@ -782,7 +803,7 @@ def prepare_general(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
             adaptive=bool(scene.monotone_field),
             iso=float(params.iso),
             r_iso=params.r_iso,
-            base_step=float(base_step),
+            base_step=float(diag * params.step_frac),
             inv_stretch=1.0 / max(scene.max_world_to_local_scale, 1e-6),
             max_steps=int(params.max_steps),
             bisect_steps=int(params.bisect_steps),

@@ -16,7 +16,9 @@ where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
+import contextlib
 import dataclasses
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -113,7 +115,35 @@ def test_kernel_matches_plain_version(cuda, name, mode):
         plain, agree, max_dt = tt.trace_tiles_plain, K1_AGREE, K1_MAX
     inp = tt.prepare_tiles(scene, ro, rd, disp=disp)
     assert inp.dyn_cull == (name == "brain")
+    if disp is None:
+        reads = _device_reads(lambda: tt.prepare_tiles(scene, ro, rd))
+        assert reads == [], reads
     _compare(inp, f"trace_additive_{mode}", plain, agree, max_dt, median)
+
+
+def _device_reads(fn):
+    """The names of the reads to the host of a CUDA tensor's value that
+    `fn()` makes, counted by patching `torch.Tensor.item`, `__float__`,
+    `__int__`, `__bool__` and `tolist` around the call. A warm rest-mode
+    `prepare_tiles` makes none: its `dyn_cull` and `base_step` come from
+    the scene's cached layout."""
+    reads = []
+
+    def counting(name):
+        read = getattr(torch.Tensor, name)
+
+        def wrapper(self, *args):
+            if self.is_cuda:
+                reads.append(name)
+            return read(self, *args)
+        return wrapper
+
+    with contextlib.ExitStack() as stack:
+        for name in ("item", "__float__", "__int__", "__bool__", "tolist"):
+            stack.enter_context(
+                mock.patch.object(torch.Tensor, name, counting(name)))
+        fn()
+    return reads
 
 
 @pytest.mark.cuda

@@ -10,6 +10,7 @@ import dataclasses
 import importlib
 import inspect
 import os
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ import fembrain_tpu_torch.blob.scene as pscene
 from fembrain_tpu_torch.blob import examples
 from fembrain_tpu_torch.blob.examples import BRAIN
 from fembrain_tpu_torch.blob.types import OpType, PrimType
+from fembrain_tpu_torch.render import tile_trace
 
 # Under pytest-xdist several workers share the host's cores; PyTorch's CPU
 # pool would start one thread per core in each worker and oversubscribe
@@ -155,6 +157,44 @@ def dif_scene(mod):
                                       right=ricci, right_is_op=True))
     sc.root_is_op = True
     return sc
+
+
+def unnormalised(scene, seed):
+    """A packed port scene with its real prim rows in a seeded order and
+    no `additive_block_types`: an additive scene the pack did not put in
+    Morton order."""
+    n, P = scene.n_prims, scene.capacity_prims
+    perm = torch.as_tensor(np.concatenate(
+        [np.random.default_rng(seed).permutation(n), np.arange(n, P)]))
+    rows = {f: getattr(scene, f)[perm] for f in (
+        "prim_type", "prim_mtx", "prim_pos", "prim_dir", "prim_res",
+        "prim_color", "warp_type", "warp_params", "prim_bb_lo",
+        "prim_bb_hi")}
+    return dataclasses.replace(scene, additive_block_types=(), **rows)
+
+
+def uncached_layouts():
+    """A context in which the tile tracer builds every scene layout
+    afresh, outside its per-Scene cache."""
+    return mock.patch.object(tile_trace, "_cached",
+                             lambda scene, build: build(scene))
+
+
+def assert_same_inputs(a, b):
+    """Every field of two TileInputs or GeneralInputs (and of their
+    displacement inputs) equal: tensors under torch.equal with the same
+    dtype and strides, the rest under ==."""
+    for f in dataclasses.fields(a):
+        va, vb = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(va, torch.Tensor):
+            assert torch.equal(va, vb) and va.dtype == vb.dtype, f.name
+            assert va.stride() == vb.stride(), f.name
+        elif f.name == "scene":
+            assert va is vb
+        elif dataclasses.is_dataclass(va):
+            assert_same_inputs(va, vb)
+        else:
+            assert va == vb, f.name
 
 
 def graph_size(t):

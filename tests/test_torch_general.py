@@ -5,6 +5,7 @@ differentiable traces `trace_fast` and `trace`, against the JAX package
 resection (a DIF over brain.blob), a twisted blend (a warp chain), a small
 CSG tree (DIF, Ricci, UNION) and every prim type under one UNION."""
 import dataclasses
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -23,6 +24,7 @@ from fembrain_tpu.render.pallas_trace import trace_fast as jax_trace_fast
 from fembrain_tpu.render.pallas_trace import trace_pallas
 from fembrain_tpu.render.sphere_trace import trace as jax_trace
 
+import fembrain_tpu_torch.blob.scene as pscene
 from fembrain_tpu_torch import convert
 from fembrain_tpu_torch.blob.types import OpType
 from fembrain_tpu_torch.ops.field import field, field_rows, normal
@@ -30,8 +32,8 @@ from fembrain_tpu_torch.render import tile_trace as tt
 from fembrain_tpu_torch.render.sphere_trace import trace
 
 from test_torch_fixtures import (
-    BRAIN, blend_twist, brain_resection, dif_scene, every_type, graph_size,
-    small_blend,
+    BRAIN, assert_same_inputs, blend_twist, brain_resection, dif_scene,
+    every_type, graph_size, small_blend, uncached_layouts,
 )
 
 TILE = 256
@@ -199,3 +201,24 @@ def test_traced_depth_holds_only_the_correction(tracer):
     assert int(hit.sum()) > 20
     one_eval = graph_size(field(sc, torch.tensor(ro)))
     assert graph_size(t) < one_eval + 30, (graph_size(t), one_eval)
+
+
+@pytest.mark.parametrize("name", ["resection", "twist", "dif", "union"])
+def test_prepare_general_from_cache_equals_uncached_layout(name):
+    """prepare_general, cold and warm, builds every field as it does from
+    a layout made outside the per-Scene cache, and one Scene object is laid
+    out once."""
+    make, pose, (w, h) = SCENES[name]
+    scene = make(pscene).pack(device="cpu")
+    ro, rd = jax_rays(JaxCamera.orbit(*pose), w, h)
+    ro = torch.tensor(np.asarray(ro).reshape(-1, 3))
+    rd = torch.tensor(np.asarray(rd).reshape(-1, 3))
+    with mock.patch.object(tt, "_general_layout",
+                           wraps=tt._general_layout) as build:
+        cold = tt.prepare_general(scene, ro, rd)
+        warm = tt.prepare_general(scene, ro, rd)
+        assert build.call_count == 1
+    with uncached_layouts():
+        ref = tt.prepare_general(scene, ro, rd)
+    assert_same_inputs(cold, ref)
+    assert_same_inputs(warm, ref)

@@ -1,7 +1,10 @@
 """PyTorch port: the rest tile trace (K1's plain version) against the
 JAX Pallas kernel in interpret mode and against the port's own lock-step
 tracer, on identical rays; plus the tile layout helpers."""
+import dataclasses
+import gc
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -13,11 +16,22 @@ from fembrain_tpu.render.camera import Camera as JaxCamera
 from fembrain_tpu.render.camera import generate_rays as jax_rays
 from fembrain_tpu.render.pallas_trace import trace_pallas, trace_pallas_image
 
+import fembrain_tpu_torch.blob.scene as pscene
 from fembrain_tpu_torch import convert
+from fembrain_tpu_torch.blob.reader import load_blob
+from fembrain_tpu_torch.blob.types import PrimType
 from fembrain_tpu_torch.render import tile_trace as tt
+from fembrain_tpu_torch.render.camera import Camera, generate_rays
+from fembrain_tpu_torch.render.deformed import (
+    biharmonic_spec, disp_bounds_sampled, wendland_spec,
+)
 from fembrain_tpu_torch.render.sphere_trace import trace
 
-from test_torch_fixtures import every_type, small_blend
+from test_torch_fixtures import (
+    assert_same_inputs, every_type, small_blend, uncached_layouts,
+    unnormalised,
+)
+from test_torch_work import _sag
 
 BRAIN = Path(__file__).resolve().parent.parent / "data/models/blobtree/brain.blob"
 TILE = 256
@@ -115,3 +129,99 @@ def test_brain_layout_cull_flags():
     # through the cylinder branch.
     mixed = [t for t in inp.block_types if len(t) > 0 and 0 not in t]
     assert mixed == [(2,)]
+
+
+def _port_rays(pose, w=30, h=20):
+    ro, rd = generate_rays(Camera.orbit(*pose, device="cpu"), w, h)
+    return ro.reshape(-1, 3), rd.reshape(-1, 3)
+
+
+def test_layout_is_built_once_per_scene_object():
+    """Five frames on one Scene lay it out once. A Scene with one prim
+    moved is a new object: it gets its own layout, whose trace equals the
+    one from a layout built outside the cache and differs from the first
+    scene's; its layout goes with it."""
+    ps = small_blend(pscene).pack(device="cpu")
+    ro, rd = _port_rays((25.0, 20.0, 2.5))
+    with mock.patch.object(tt, "_additive_layout",
+                           wraps=tt._additive_layout) as build:
+        frames = [tt.trace_tiles_image(ps, ro, rd, 20, 30) for _ in range(5)]
+        assert build.call_count == 1
+        pos = ps.prim_pos.clone()
+        pos[0, 1] += 0.2
+        moved = dataclasses.replace(ps, prim_pos=pos)
+        t, hit = tt.trace_tiles_image(moved, ro, rd, 20, 30)
+        assert build.call_count == 2
+    for t_f, hit_f in frames[1:]:
+        assert torch.equal(t_f, frames[0][0]) and torch.equal(hit_f,
+                                                              frames[0][1])
+    with uncached_layouts():
+        t_u, hit_u = tt.trace_tiles_image(moved, ro, rd, 20, 30)
+    assert torch.equal(t, t_u) and torch.equal(hit, hit_u)
+    assert not torch.equal(t, frames[0][0])
+    # The cache holds no Scene: an entry leaves with its Scene.
+    gone = id(moved)
+    build.reset_mock()  # its call record holds the Scene
+    del moved
+    gc.collect()
+    assert all(key[0] != gone for key in tt._LAYOUTS)
+
+
+def _sphere():
+    sc = pscene.SceneDef()
+    sc.add_prim(pscene.PrimDef(PrimType.POINT, pos=np.zeros(3)))
+    return sc.pack(device="cpu")
+
+
+def _brain():
+    sc = load_blob(BRAIN)
+    sc.flatten_instances()
+    return sc.pack(device="cpu")
+
+
+# Scenes the pack left unnormalised reach the additive path with no
+# `additive_block_types`: one prim (the pack keeps its identity order),
+# and packed scenes given back in another row order.
+ADDITIVE = {
+    "every_type": (lambda: every_type(pscene).pack(device="cpu"),
+                   (25.0, 20.0, 2.5)),
+    "sphere": (_sphere, (30.0, 20.0, 4.0)),
+    "every_type_unnormalised": (
+        lambda: unnormalised(every_type(pscene).pack(device="cpu"), 8),
+        (25.0, 20.0, 2.5)),
+    "brain_unnormalised": (lambda: unnormalised(_brain(), 7),
+                           (30.0, 20.0, 6.0)),
+}
+
+
+@pytest.mark.parametrize("name,mode", [
+    ("every_type", "rest"), ("every_type", "wendland"),
+    ("every_type", "biharmonic"), ("sphere", "rest"),
+    ("every_type_unnormalised", "rest"), ("brain_unnormalised", "rest"),
+])
+def test_prepare_tiles_from_cache_equals_uncached_layout(name, mode):
+    """prepare_tiles, cold and warm, builds every field as it does from a
+    layout made outside the cache; an unnormalised scene is laid out in
+    the pack's Morton order."""
+    make, pose = ADDITIVE[name]
+    scene = make()
+    assert tt.is_additive_path(scene)
+    assert bool(scene.additive_block_types) == (name == "every_type")
+    disp = None
+    if mode == "wendland":
+        interp, w, _ = _sag(scene, "wendland")
+        disp = wendland_spec(interp, w, k_refresh=4)
+    elif mode == "biharmonic":
+        interp, w, pts = _sag(scene, "biharmonic")
+        disp = biharmonic_spec(interp, w, *disp_bounds_sampled(interp, w,
+                                                               pts))
+    ro, rd = _port_rays(pose)
+    cold = tt.prepare_tiles(scene, ro, rd, disp=disp)
+    warm = tt.prepare_tiles(scene, ro, rd, disp=disp)
+    with uncached_layouts():
+        ref = tt.prepare_tiles(scene, ro, rd, disp=disp)
+    assert_same_inputs(cold, ref)
+    assert_same_inputs(warm, ref)
+    if name.endswith("_unnormalised"):
+        order = torch.as_tensor(pscene.morton_order(scene))
+        assert torch.equal(ref.prim_boxes[:, :3], scene.prim_bb_lo[order])
